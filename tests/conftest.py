@@ -8,6 +8,11 @@ import jax
 jax.config.update("jax_enable_x64", False)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; the test skips without one")
+
+
 @pytest.fixture(scope="session")
 def small_problem():
     from repro.data.synthetic import LinearDatasetSpec, make_linear_problem
