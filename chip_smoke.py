@@ -2,14 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each one
-against its plain PyTorch version at the main path's shapes and times both,
-then drives the main paths through the port's entry points at RCV1 width
-(d = 47,236): the paper's ACPD loop, the CoCoA+ baseline, and the Table-I
-message filter on the workers' updates. Launch counts are zeroed just before
-each path and read just after it. Every phase prints one JSON line; any
-failure raises and the script exits non-zero. The last line is the device
-summary ``{"ok": true, "device": {...}}``.
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+per source, all started together), holds each one against its plain
+PyTorch version at the main paths' shapes and times both, then drives the
+main paths through the port's entry points: at RCV1 width (d = 47,236) the
+paper's ACPD loop, the CoCoA+ baseline and the Table-I message filter on the
+workers' updates; then batched greedy serving of qwen3-14b at full width and
+depth (40 layers, bfloat16, random weights from a seed), whose prefill runs
+every attention layer through the flash-attention kernel, and a check of
+the prefill path against the decode path on the card. Launch counts are
+zeroed just before each path and read just after it. Every phase prints one
+JSON line; any failure raises and the script exits non-zero. The last line
+is the device summary ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository's ``src`` beside it; without
 either it fails before printing any result.
@@ -17,6 +21,7 @@ either it fails before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pathlib
@@ -37,10 +42,19 @@ B, T, RHO_D, GAMMA = 4, 20, 1000, 0.5
 SEED, LAM = 7, 1e-3
 COCOA_ROUNDS = 10
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 FLOP/s outside
-# the tensor cores, the type both kernels compute in.
+# The serve path: qwen3-14b at full width and depth, batch 4, a 2048-token
+# prompt, 16 generated tokens; the consistency check at the same width with
+# 2 layers in float32.
+SERVE_ARCH, SERVE_B, SERVE_PLEN, SERVE_GEN = "qwen3-14b", 4, 2048, 16
+CONSIST_LAYERS = 2
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 bytes/s,
+# float32 FLOP/s outside the tensor cores (the type the SDCA and top-k
+# kernels compute in), and bf16 FLOP/s of the tensor cores (the least time
+# for the attention's products in the serve path's type).
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
 
 
 def emit(phase: str, **fields) -> None:
@@ -89,7 +103,12 @@ def main() -> int:
     from repro_torch.api import problems
     from repro_torch.core import acpd, baselines, filter as msg_filter, sdca
     from repro_torch.core.simulate import ClusterModel
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_token_dataset
     from repro_torch.kernels import _build, ops, ref, topk_filter as topk_mod
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, model_spec, prefill
+    from repro_torch.models.param import tree_materialize
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -102,9 +121,10 @@ def main() -> int:
 
     # -- build: one nvcc per source, all started together --------------------
     t0 = time.perf_counter()
-    _build.build("sdca_inner", "topk_filter")
+    sources = ("sdca_inner", "topk_filter", "flash_attn")
+    _build.build(*sources)
     ptxas = {}
-    for name in ("sdca_inner", "topk_filter"):
+    for name in sources:
         log = _build.library_path(name).with_suffix(".log")
         ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
                        if "registers" in ln or "spill" in ln] if log.exists() else []
@@ -290,6 +310,128 @@ def main() -> int:
     check(launches["table1_filter"]["topk_filter"] == K, "filter launched once per worker")
     check(launches["table1_filter"]["sdca_inner"] == 1, "one all-worker SDCA launch")
     check(conserved and kept == want_kept, "filtered updates keep min(k, #above floor), conserve dw")
+
+    # Free the ACPD problem (6.2 GB of X) before the model's 29.5 GB.
+    del problem, norms, upd, filtered, w_srv, alpha_t, res, res_c, idx, w_eff, alpha
+    torch.cuda.empty_cache()
+
+    # -- kernel 3: flash_attention_fwd at the serve shape and a ragged S -----
+    flash_err = {"float32": 0.0, "bfloat16": 0.0}
+    tol = {"float32": 1e-5, "bfloat16": 3e-2}
+    serve_shape = dict(B=SERVE_B, S=SERVE_PLEN, KV=8, G=5, hd=128)  # qwen3-14b's GQA
+    cases = [(dict(serve_shape, B=2, S=1000), dt, c)
+             for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
+    cases += [(serve_shape, dt, True) for dt in (torch.float32, torch.bfloat16)]
+    for shape, dtype, causal in cases:
+        B_, S_, KV_, G_, hd_ = (shape[k] for k in ("B", "S", "KV", "G", "hd"))
+        q = torch.randn(B_, S_, KV_, G_, hd_, generator=gen, device=dev).to(dtype)
+        k_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(dtype)
+        v_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(dtype)
+        out = ops.flash_attention_fwd(q, k_, v_, causal=causal)
+        want = ref.flash_attention_fwd_ref(q, k_, v_, causal=causal)
+        torch.cuda.synchronize()
+        name = str(dtype).removeprefix("torch.")
+        err = float((out.float() - want.float()).abs().max())
+        rtol = 1e-5 if dtype == torch.float32 else 0.0
+        within = bool(torch.allclose(out.float(), want.float(), rtol=rtol, atol=tol[name]))
+        bitwise = bool(torch.equal(out, ops.flash_attention_fwd(q, k_, v_, causal=causal)))
+        flash_err[name] = max(flash_err[name], err)
+        emit("kernel_flash_attention_check", shape=shape, dtype=name, causal=causal,
+             max_abs_err=err, rtol=rtol, atol=tol[name], within=within,
+             repeat_bitwise=bitwise)
+        check(within, f"flash_attention_fwd within tolerance ({shape}, {name}, {causal})")
+        check(bitwise, f"flash_attention_fwd repeats bit for bit ({shape}, {name})")
+    # Timing at the serve shape, bfloat16, causal: the kernel, the plain
+    # version, and SDPA on the (B, H, S, hd) layout (timed only, never used).
+    ms = time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, causal=True), warmup=2, reps=10)
+    plain_ms = time_ms(lambda: ref.flash_attention_fwd_ref(q, k_, v_, causal=True),
+                       warmup=1, reps=3)
+    B_, S_, KV_, G_, hd_ = q.shape
+    qs = q.reshape(B_, S_, KV_ * G_, hd_).transpose(1, 2).contiguous()
+    ks, vs = k_.transpose(1, 2).contiguous(), v_.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True),
+                         warmup=2, reps=10)
+    sdpa_err = float((sdpa(qs, ks, vs, is_causal=True, enable_gqa=True).transpose(1, 2)
+                      .reshape(q.shape).float() - out.float()).abs().max())
+    flops = 4 * B_ * KV_ * G_ * hd_ * S_ * (S_ + 1) // 2  # q.k and p.v on the causal half
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k_.numel() * k_.element_size()
+    bound_ms = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    kernels["flash_attention_fwd"] = dict(
+        name="flash_attention_fwd", route="cuda", source="src/repro_torch/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attn.py:86",
+        max_abs_err=max(flash_err.values()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="operations" if flops / PEAK_BF16 >= nbytes / PEAK_BYTES else "bytes",
+        library_ms=library_ms)
+    emit("kernel_flash_attention", shape=serve_shape, dtype="bfloat16", causal=True,
+         max_abs_err_by_dtype=flash_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+         library="scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+         library_max_abs_diff=sdpa_err, bound_ms=bound_ms, bound_flops=flops,
+         bound_bytes=nbytes, achieved_tflops=flops / (ms * 1e-3) / 1e12)
+    del q, k_, v_, out, want, qs, ks, vs
+    torch.cuda.empty_cache()
+
+    # -- main path 4: serve qwen3-14b at full width and depth ----------------
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = tree_materialize(model_spec(cfg), torch.Generator(device=dev).manual_seed(SEED),
+                              dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = make_token_dataset(SERVE_B * SERVE_PLEN, cfg.vocab_size, 0).reshape(
+        SERVE_B, SERVE_PLEN)
+    serve.generate(params, prompts, cfg, 2, device=dev)  # warm-up: cuBLAS, allocator
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    gen_res = serve.generate(params, prompts, cfg, SERVE_GEN, device=dev)
+    wall = time.perf_counter() - t0
+    launches["serve"] = dict(ops.LAUNCHES)
+    emit("serve", arch=cfg.arch_id, layers=cfg.num_layers, d_model=cfg.d_model,
+         dtype=cfg.param_dtype, batch=SERVE_B, prompt_len=SERVE_PLEN, gen=SERVE_GEN,
+         max_seq=SERVE_PLEN + SERVE_GEN, init_s=init_s, prefill_s=gen_res.prefill_s,
+         decode_ms_per_token=gen_res.decode_s / (SERVE_GEN - 1) * 1e3, wall_s=wall,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         prefill_flash_launches=gen_res.prefill_flash_launches,
+         decode_flash_launches=gen_res.decode_flash_launches,
+         logits_finite=gen_res.logits_finite, tokens_row0=gen_res.tokens[0].tolist(),
+         launches=launches["serve"])
+    check(gen_res.prefill_flash_launches == cfg.num_layers,
+          f"prefill launched the flash kernel {gen_res.prefill_flash_launches} times")
+    check(gen_res.decode_flash_launches == 0, "decode launched no flash kernel")
+    check(launches["serve"]["flash_attention_fwd"] == cfg.num_layers,
+          "the serve path launched the flash kernel once per layer")
+    check(gen_res.logits_finite, "all logits finite")
+    check(gen_res.tokens.shape == (SERVE_B, SERVE_GEN), "generated (B, gen) tokens")
+    del params
+    torch.cuda.empty_cache()
+
+    # -- the kernel's prefill against the cache's decode, on the card --------
+    # Logits at position 2048 from one prefill over 2049 tokens (a ragged
+    # last tile) and from prefill over 2048 then one decode step.
+    cfg2 = dataclasses.replace(cfg, num_layers=CONSIST_LAYERS, param_dtype="float32",
+                               compute_dtype="float32")
+    p2 = tree_materialize(model_spec(cfg2), torch.Generator(device=dev).manual_seed(SEED),
+                          dev)
+    toks = torch.as_tensor(make_token_dataset(SERVE_PLEN + 1, cfg2.vocab_size, 1),
+                           device=dev).long()[None]
+    ops.reset_launch_counts()
+    whole, _, _ = prefill(p2, {"tokens": toks}, cfg2, max_seq=SERVE_PLEN + 1)
+    _, caches, plen = prefill(p2, {"tokens": toks[:, :SERVE_PLEN]}, cfg2,
+                              max_seq=SERVE_PLEN + 1)
+    stepped, _ = decode_step(p2, toks[:, SERVE_PLEN], caches, plen + 1, cfg2)
+    torch.cuda.synchronize()
+    consist = dict(ops.LAUNCHES)
+    diff = float((whole - stepped).abs().max())
+    close = bool(torch.allclose(stepped, whole, rtol=1e-3, atol=1e-3))
+    emit("serve_consistency", layers=CONSIST_LAYERS, dtype="float32", batch=1,
+         prompt_len=SERVE_PLEN + 1, max_abs_diff=diff, rtol=1e-3, atol=1e-3,
+         within=close, same_argmax=bool(torch.equal(whole.argmax(-1), stepped.argmax(-1))),
+         launches=consist)
+    check(consist["flash_attention_fwd"] == 2 * CONSIST_LAYERS, "both prefills used the kernel")
+    check(close, "prefill over S+1 tokens agrees with prefill over S plus one decode step")
+    del p2, caches
+    torch.cuda.empty_cache()
 
     for name, entry in kernels.items():
         entry["launches"] = sum(path[name] for path in launches.values())

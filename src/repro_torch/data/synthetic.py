@@ -80,3 +80,12 @@ def make_linear_problem(spec: LinearDatasetSpec, lam: float = 1e-4,
     X, y = make_linear_arrays(spec)
     return Problem(X=torch.from_numpy(X).to(dev), y=torch.from_numpy(y).to(dev),
                    lam=lam, loss=loss)  # type: ignore[arg-type]
+
+
+def make_token_dataset(num_tokens: int, vocab_size: int, seed: int = 0) -> np.ndarray:
+    """Zipf-distributed token stream (int32), draw for draw the JAX package's."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1)
+    p = 1.0 / ranks**1.1
+    p /= p.sum()
+    return rng.choice(vocab_size, size=num_tokens, p=p).astype(np.int32)

@@ -1,0 +1,81 @@
+"""Launcher for the CUDA flash-attention forward kernel (``csrc/flash_attn.cu``).
+
+Replaces the TPU kernel ``repro.kernels.flash_attn.flash_attention_fwd_pallas``:
+GQA attention forward over q (B, S, KV, G, hd) and k, v (B, S, KV, hd),
+causal or not, with an online softmax in float32 and the KV tiles above the
+diagonal skipped. See the CUDA source for the design and what bounds it.
+
+Limits, checked here and raised on: float32 or bfloat16 tensors of one
+dtype on one CUDA device, contiguous, in those layouts; hd one of
+:data:`HEAD_DIMS`; at most 64 query heads per KV head. Like the TPU kernel,
+it scales q by ``sm_scale`` (default ``hd ** -0.5``) itself: pass q not
+pre-scaled, or pre-scaled with ``sm_scale=1.0``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+NAME = "flash_attn"
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_GROUP = 64  # query rows per tile in the kernel
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(NAME)
+    if not getattr(lib, "_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attn_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, p]
+        lib.flash_attn_launch.restype = i
+        lib._typed = True
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 5:
+        raise ValueError(f"flash_attn: q must be (B, S, KV, G, hd), got {tuple(q.shape)}")
+    B, S, KV, G, hd = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"flash_attn: {name} must lie on one CUDA device, "
+                             f"got {t.device} (q on {q.device})")
+        if t.dtype not in _DTYPES or t.dtype != q.dtype:
+            raise ValueError(f"flash_attn: q, k, v must share a dtype among "
+                             f"float32 and bfloat16, got {name} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attn: {name} is not contiguous")
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (B, S, KV, hd):
+            raise ValueError(f"flash_attn: {name} must be {(B, S, KV, hd)}, "
+                             f"got {tuple(t.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attn: head dim {hd} not among {HEAD_DIMS}")
+    if G > MAX_GROUP or min(B, S, KV, G) < 1:
+        raise ValueError(f"flash_attn: need B, S, KV >= 1 and 1 <= G <= {MAX_GROUP}, "
+                         f"got {tuple(q.shape)}")
+
+
+def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                             causal: bool = True,
+                             sm_scale: float | None = None) -> torch.Tensor:
+    """Launch the kernel; returns (B, S, KV, G, hd) in q's dtype.
+
+    The launch is asynchronous on the current stream.
+    """
+    _check(q, k, v)
+    B, S, KV, G, hd = q.shape
+    scale = hd**-0.5 if sm_scale is None else float(sm_scale)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        out = torch.empty_like(q)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.flash_attn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     out.data_ptr(), B, S, KV, G, hd,
+                                     _DTYPES[q.dtype], int(causal), scale, stream)
+    _build.check(lib, NAME, code, "flash_attn launch")
+    return out

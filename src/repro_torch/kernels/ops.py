@@ -14,10 +14,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attn import flash_attention_fwd_cuda
 from repro_torch.kernels.sdca_inner import sdca_inner_cuda
 from repro_torch.kernels.topk_filter import topk_filter_cuda, topk_filter_plain
 
-LAUNCHES: dict[str, int] = {"sdca_inner": 0, "topk_filter": 0}
+LAUNCHES: dict[str, int] = {"sdca_inner": 0, "topk_filter": 0,
+                             "flash_attention_fwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -53,3 +55,18 @@ def sdca_epoch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
         return out
     return ref.sdca_inner_ref(w_eff, alpha, X, y, norms_sq, lam, n_global,
                               sigma_prime, idx)
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: float | None = None):
+    """GQA attention forward: q (B, S, KV, G, hd), k/v (B, S, KV, hd) -> q's shape.
+
+    q is scaled by ``sm_scale`` (default ``hd ** -0.5``) inside, as on the
+    TPU; a caller holding pre-scaled q passes ``sm_scale=1.0``. On the card
+    this is one launch of ``csrc/flash_attn.cu``; on the CPU it is
+    ``ref.flash_attention_fwd_ref``.
+    """
+    if q.is_cuda:
+        out = flash_attention_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale)
+        LAUNCHES["flash_attention_fwd"] += 1
+        return out
+    return ref.flash_attention_fwd_ref(q, k, v, causal=causal, sm_scale=sm_scale)

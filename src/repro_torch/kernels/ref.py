@@ -2,12 +2,17 @@
 
 ``sdca_inner_ref`` is the ridge worker step written out over a batch of K
 workers (the JAX package's ``vmap``); ``topk_filter_ref`` is the exact top-k
-split that the banded histogram filter is held against.
+split that the banded histogram filter is held against;
+``flash_attention_fwd_ref`` is GQA attention with the whole score matrix
+materialised, which the flash kernel is held against.
 """
 
 from __future__ import annotations
 
 import torch
+
+# Masked scores, as in the TPU kernel (src/repro/kernels/flash_attn.py).
+NEG_INF = -1e30
 
 # A module import, not a name import: core.sdca imports kernels.ops, which
 # imports this module, so core.sdca may still be initializing here.
@@ -33,3 +38,26 @@ def sdca_inner_ref(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
     dalpha, v = sdca.sdca_epoch_plain("ridge", w_eff, alpha, X, y, norms_sq,
                                       lam, n_global, sigma_prime, idx)
     return dalpha, v
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool, sm_scale: float | None = None) -> torch.Tensor:
+    """GQA attention forward, computed in float32, cast to ``q.dtype``.
+
+    ``q (B, S, KV, G, hd)``, ``k``/``v (B, S, KV, hd)``; ``q`` is scaled by
+    ``sm_scale`` (default ``hd ** -0.5``) here, so pass it unscaled, or
+    pre-scaled with ``sm_scale=1.0``. Masked scores are ``NEG_INF``.
+    """
+    B, S, KV, G, hd = q.shape
+    scale = hd**-0.5 if sm_scale is None else sm_scale
+    qf = q.float() * scale
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float())  # (B, KV, G, S, S)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = kpos < S
+    if causal:
+        mask = mask & (kpos <= qpos)
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return out.to(q.dtype)

@@ -1,0 +1,10 @@
+"""Model stack of the port: dense attention text models (qwen3 family)."""
+
+from repro_torch.models.config import LayerSpec, ModelConfig  # noqa: F401
+from repro_torch.models.model import (  # noqa: F401
+    decode_step,
+    init_caches,
+    model_spec,
+    prefill,
+)
+from repro_torch.models import param  # noqa: F401

@@ -1,0 +1,127 @@
+"""GQA attention: flash-kernel prefill and the decode path over a KV cache.
+
+PyTorch counterpart of ``repro.models.attention`` for layers with full
+attention and no logit softcap. Prefill runs every layer through
+``kernels.ops.flash_attention_fwd`` (on the card, the hand-written kernel
+``csrc/flash_attn.cu``); decode attends one query over the cache in plain
+PyTorch, as the JAX package does. A layer with a sliding window, or a
+config with a softcap, raises ``NotImplementedError`` on every device: those
+wait for ``attend_blocked`` and the windowed flash path (ROADMAP A11).
+
+Scaling: ``_project_qkv`` pre-scales q by ``hd ** -0.5`` in the compute
+dtype, as the JAX package does, and ``attention`` hands that q to the kernel
+with ``sm_scale=1.0``, so q is scaled once and rounded as in JAX.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import rmsnorm, rope
+from repro_torch.models.param import ParamSpec
+
+
+def attention_spec(cfg: ModelConfig) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    dt = cfg.pdtype
+    spec = {
+        "wq": ParamSpec((d, H * hd), dt, ("embed", "heads")),
+        "wk": ParamSpec((d, KV * hd), dt, ("embed", "kv_heads")),
+        "wv": ParamSpec((d, KV * hd), dt, ("embed", "kv_heads")),
+        "wo": ParamSpec((H * hd, d), dt, ("heads", "embed")),
+    }
+    if cfg.qk_norm:
+        spec["q_norm"] = {"scale": ParamSpec((hd,), torch.float32, (None,), init="ones")}
+        spec["k_norm"] = {"scale": ParamSpec((hd,), torch.float32, (None,), init="ones")}
+    return spec
+
+
+def check_supported(cfg: ModelConfig, window: int | None) -> None:
+    """Raise for what this slice does not run: windows and softcaps."""
+    if window is not None:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: sliding-window attention (window={window}) is not "
+            "ported yet (ROADMAP A11)")
+    if cfg.attn_logit_softcap is not None:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: attention logit softcap is not ported yet (ROADMAP A11)")
+
+
+def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """x (B,S,D) -> q (B,S,KV,G,hd) pre-scaled, k, v (B,S,KV,hd); RoPE'd + normed."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
+    k = (x @ params["wk"].to(dt)).reshape(B, S, KV, hd)
+    v = (x @ params["wv"].to(dt)).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.rmsnorm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.rmsnorm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    # The scale rounded to the compute dtype first, as a weakly typed Python
+    # float is in JAX: q * hd^-0.5 rounds as the JAX package's does.
+    scale = torch.tensor(hd**-0.5, dtype=dt, device=x.device)
+    q = q.reshape(B, S, KV, H // KV, hd) * scale
+    return q, k, v
+
+
+def attend_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 cfg: ModelConfig, *, cache_len: int) -> torch.Tensor:
+    """Single-token decode attention over the first ``cache_len`` cache slots.
+
+    q (B, 1, KV, G, hd) pre-scaled; caches (B, S_max, KV, hd). Returns
+    (B, 1, KV, G, hd).
+    """
+    S_max = k_cache.shape[1]
+    mask = torch.arange(S_max, device=q.device) < cache_len
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k_cache).float()
+    scores = scores.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bkgqh", p.to(q.dtype), v_cache)
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor, window: int | None,
+              cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+              cache_len: int | None = None, return_kv: bool = False):
+    """Full attention layer. Returns (out (B,S,D), cache or None).
+
+    Prefill (``cache=None``) goes through the flash kernel; ``return_kv=True``
+    also returns the projected (k, v) for the caller to assemble caches.
+    Decode (``cache=(k_cache, v_cache)``, S == 1) writes the new token's k, v
+    into slot ``cache_len - 1`` of the buffers in place, where the JAX
+    package makes updated copies, and returns the same buffers.
+    """
+    check_supported(cfg, window)
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    if positions.dim() == 1:
+        positions = positions[None, :].expand(B, S)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+
+    new_cache = None
+    if cache is None:
+        out = ops.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                      causal=cfg.causal, sm_scale=1.0)
+        if return_kv:
+            new_cache = (k, v)
+    else:
+        if S != 1 or cache_len is None:
+            raise ValueError("decode takes one token and its cache_len")
+        k_cache, v_cache = cache
+        k_cache[:, cache_len - 1] = k[:, 0]
+        v_cache[:, cache_len - 1] = v[:, 0]
+        out = attend_cache(q, k_cache, v_cache, cfg, cache_len=cache_len)
+        new_cache = (k_cache, v_cache)
+
+    out = out.reshape(B, S, H * hd) @ params["wo"].to(x.dtype)
+    return out, new_cache

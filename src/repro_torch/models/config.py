@@ -1,0 +1,154 @@
+"""Model configuration (PyTorch counterpart of ``repro.models.config``).
+
+A model is a sequence of *stages*; each stage is a stack of identical
+*periods*; a period is a tuple of :class:`LayerSpec`s. The JAX package scans
+each stage; the port loops over its periods in Python. The dataclasses and
+their field values are the JAX package's; only ``pdtype``/``cdtype`` give
+``torch.dtype``s.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import torch
+
+Family = Literal["dense", "moe", "hybrid", "ssm", "audio", "vlm"]
+LayerKind = Literal["attn", "mamba"]
+MlpKind = Literal["dense", "moe", "none"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: LayerKind = "attn"
+    mlp: MlpKind = "dense"
+    window: int | None = None  # sliding-window size; None = full attention
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: Family
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int | None = None  # None -> d_model // num_heads
+
+    # Attention details.
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    causal: bool = True  # False for encoder-only (hubert)
+    attn_logit_softcap: float | None = None
+
+    # Layer pattern. Default: homogeneous attention stack.
+    layout: tuple[LayerSpec, ...] = (LayerSpec(),)
+
+    # MoE.
+    num_experts: int = 0
+    experts_per_token: int = 0
+    d_ff_expert: int = 0
+    moe_capacity_factor: float = 1.25
+    norm_topk_probs: bool = True
+
+    # SSM (Mamba2 / SSD).
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256
+
+    # Modality frontend.
+    frontend: Literal["text", "audio_stub", "vision_stub"] = "text"
+    num_patch_tokens: int = 1024
+
+    # Numerics.
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    rmsnorm_eps: float = 1e-6
+
+    source: str = ""
+
+    def __post_init__(self):
+        if self.num_heads % max(self.num_kv_heads, 1) != 0:
+            raise ValueError(f"num_heads {self.num_heads} is not a multiple of "
+                             f"num_kv_heads {self.num_kv_heads} (GQA grouping)")
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.num_heads
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+    def stages(self) -> list[tuple[tuple[LayerSpec, ...], int]]:
+        """[(period_layout, num_periods), ...] covering exactly num_layers."""
+        period = len(self.layout)
+        full, rem = divmod(self.num_layers, period)
+        out: list[tuple[tuple[LayerSpec, ...], int]] = []
+        if full:
+            out.append((self.layout, full))
+        if rem:
+            out.append((self.layout[:rem], 1))
+        return out
+
+    def max_window(self) -> int | None:
+        """None if any attention layer is full/global (unbounded context cost)."""
+        windows = [l.window for l in self.layout if l.kind == "attn"]
+        if not windows:
+            return 0
+        if any(w is None for w in windows):
+            return None
+        return max(windows)
+
+    def supports_long_decode(self) -> bool:
+        if self.family in ("ssm",):
+            return True
+        if self.family == "hybrid":
+            return True
+        return self.max_window() is not None or any(
+            l.kind == "attn" and l.window is not None for l in self.layout)
+
+    def supports_decode(self) -> bool:
+        return self.causal
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: <=2 periods, d_model<=256, <=4 experts."""
+        period = len(self.layout)
+        num_heads = min(self.num_heads, 4)
+        kv_target = min(self.num_kv_heads, num_heads)
+        num_kv = max(d for d in range(1, num_heads + 1)
+                     if num_heads % d == 0 and d <= kv_target)
+        layout = tuple(
+            dataclasses.replace(l, window=min(l.window, 64) if l.window else l.window)
+            for l in self.layout)
+        return dataclasses.replace(
+            self,
+            num_layers=min(self.num_layers, 2 * period),
+            d_model=min(self.d_model, 256),
+            num_heads=num_heads,
+            num_kv_heads=num_kv,
+            head_dim=64 if self.head_dim else None,
+            d_ff=min(self.d_ff, 512),
+            d_ff_expert=min(self.d_ff_expert, 128) if self.d_ff_expert else 0,
+            vocab_size=min(self.vocab_size, 512),
+            num_experts=min(self.num_experts, 4) if self.num_experts else 0,
+            experts_per_token=min(self.experts_per_token, 2) if self.experts_per_token else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_head_dim=32 if self.ssm_state else self.ssm_head_dim,
+            num_patch_tokens=16 if self.frontend == "vision_stub" else self.num_patch_tokens,
+            layout=layout,
+            param_dtype="float32",
+            compute_dtype="float32",
+        )

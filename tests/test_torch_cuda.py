@@ -8,7 +8,9 @@ The file imports no JAX, so it also runs where JAX is not installed:
 Tolerances: the SDCA kernel sums its dot products in another order than the
 plain version, and the H dependent steps compound that, so rtol 1e-4 /
 atol 1e-5; the top-k kernel makes the plain version's integer decisions on
-the same edges, so its outputs are equal exactly.
+the same edges, so its outputs are equal exactly; the flash kernel sums its
+float32 products in tiles where the plain version sums whole rows, so
+rtol 1e-5 / atol 2e-5 in float32 and atol 3e-2 in bfloat16.
 """
 
 import numpy as np
@@ -19,7 +21,7 @@ from repro_torch.api import problems
 from repro_torch.core import acpd, baselines, sdca
 from repro_torch.core.simulate import ClusterModel
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels import sdca_inner, topk_filter
+from repro_torch.kernels import flash_attn, sdca_inner, topk_filter
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +123,54 @@ def test_small_run_on_the_card_matches_the_host(cuda, preset):
         assert (h.bytes_up, h.bytes_down, h.sim_time) == (c.bytes_up, c.bytes_down, c.sim_time)
         np.testing.assert_allclose(c.gap, h.gap, rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(card.w, host.w, rtol=1e-4, atol=1e-6)
+
+
+FLASH_SHAPES = [(2, 64, 2, 2, 16, True), (1, 100, 1, 3, 32, True), (2, 48, 2, 1, 16, False),
+                (1, 128, 4, 2, 64, True), (1, 96, 2, 2, 16, True),
+                (1, 1000, 2, 5, 128, True), (2, 257, 8, 5, 128, False)]
+
+
+def _flash_inputs(B, S, KV, G, hd, device, dtype=torch.float32):
+    rng = np.random.default_rng(S * 7 + hd)
+    q = rng.standard_normal((B, S, KV, G, hd)).astype(np.float32) * 0.4
+    k = rng.standard_normal((B, S, KV, hd)).astype(np.float32) * 0.4
+    v = rng.standard_normal((B, S, KV, hd)).astype(np.float32)
+    return [torch.from_numpy(a).to(device=device, dtype=dtype) for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,causal", FLASH_SHAPES)
+def test_flash_kernel_matches_plain_and_repeats_bitwise(cuda, B, S, KV, G, hd, causal):
+    q, k, v = _flash_inputs(B, S, KV, G, hd, cuda)
+    before = ops.LAUNCHES["flash_attention_fwd"]
+    out = ops.flash_attention_fwd(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention_fwd"] == before + 1
+    want = ref.flash_attention_fwd_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=2e-5)
+    assert torch.equal(out, ops.flash_attention_fwd(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_bf16(cuda, causal):
+    q, k, v = _flash_inputs(2, 300, 8, 5, 128, cuda, torch.bfloat16)
+    out = ops.flash_attention_fwd(q, k, v, causal=causal)
+    assert out.dtype == torch.bfloat16
+    want = ref.flash_attention_fwd_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=3e-2)
+
+
+def test_flash_kernel_takes_prescaled_q(cuda):
+    q, k, v = _flash_inputs(1, 130, 2, 5, 64, cuda)
+    torch.testing.assert_close(ops.flash_attention_fwd(q * 0.125, k, v, sm_scale=1.0),
+                               ops.flash_attention_fwd(q, k, v), rtol=1e-6, atol=1e-6)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _flash_inputs(1, 16, 2, 2, 16, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention_fwd(*_flash_inputs(1, 16, 2, 2, 48, cuda))
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attn.flash_attention_fwd_cuda(q, k.cpu(), v)

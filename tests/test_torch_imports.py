@@ -1,5 +1,5 @@
 """The port stands alone: nothing in ``src/repro_torch``, ``chip_smoke.py`` or
-``scripts/profile_torch_acpd.py`` imports JAX or the JAX package ``repro``,
+the port's profile scripts imports JAX or the JAX package ``repro``,
 statically or at run time."""
 
 import ast
@@ -12,7 +12,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_acpd.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_acpd.py",
+    ROOT / "scripts" / "profile_torch_serve.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
