@@ -10,8 +10,11 @@ paper's ACPD loop, the CoCoA+ baseline and the Table-I message filter on the
 workers' updates; then batched greedy serving of qwen3-14b at full width and
 depth (40 layers, bfloat16, random weights from a seed), whose prefill runs
 every attention layer through the flash-attention kernel, and a check of
-the prefill path against the decode path on the card. Launch counts are
-zeroed just before each path and read just after it. Every phase prints one
+the prefill path against the decode path on the card. It also checks that
+the bfloat16 flash kernel was compiled to tensor-core (HGMMA) and TMA
+instructions, and that one top-k filter call runs at most four kernels
+without a host sync. Launch counts are zeroed just before each path and
+read just after it. Every phase prints one
 JSON line; any failure raises and the script exits non-zero. The last line
 is the device summary ``{"ok": true, "device": {...}}``.
 
@@ -25,6 +28,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -127,8 +131,25 @@ def main() -> int:
     for name in sources:
         log = _build.library_path(name).with_suffix(".log")
         ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                       if "registers" in ln or "spill" in ln] if log.exists() else []
+                       if "registers" in ln or "spill" in ln or "(C75" in ln
+                       ] if log.exists() else []  # C75xx: wgmma serialized
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    # The bf16 flash kernel must run both products on wgmma (HGMMA in SASS)
+    # and load by TMA (UTMALDG).
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cuobjdump = shutil.which("cuobjdump") or str(
+        pathlib.Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump")
+    if pathlib.Path(cuobjdump).exists():
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path("flash_attn"))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+        utmaldg = sum("UTMALDG" in ln for ln in sass.splitlines())
+        emit("flash_sass", cuobjdump=cuobjdump, hgmma_instructions=hgmma,
+             tma_load_instructions=utmaldg, has_hgmma=hgmma > 0)
+        check(hgmma > 0, "the flash library holds HGMMA instructions")
+    else:
+        emit("flash_sass", cuobjdump=None, has_hgmma=None, note="no cuobjdump on this machine")
 
     # -- the main problem: rcv1_like at RCV1 width, on the card --------------
     t0 = time.perf_counter()
@@ -211,6 +232,22 @@ def main() -> int:
             check(row["count"] == row["count_want"] and row["conserves"] and row["banded"],
                   f"topk_filter contract ({label}, {dtype})")
     x = worker_dw.contiguous()
+    # One call is at most four kernels, with no host sync between them.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.topk_filter(x, k_keep)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ops.topk_filter(x, k_keep)
+        torch.cuda.synchronize()
+    topk_kernels = [e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+    emit("kernel_topk_filter_launches", kernels_per_call=len(topk_kernels),
+         names=topk_kernels, host_sync=False)
+    check(0 < len(topk_kernels) <= 4, f"one topk_filter call ran {len(topk_kernels)} kernels")
     ms = time_ms(lambda: ops.topk_filter(x, k_keep), warmup=5, reps=100)
     plain_ms = time_ms(lambda: topk_mod.topk_filter_plain(x, k_keep), warmup=3, reps=20)
     library_ms = time_ms(lambda: torch.topk(x.abs(), k_keep), warmup=5, reps=100)
@@ -223,7 +260,7 @@ def main() -> int:
         bound_by="bytes" if nbytes / PEAK_BYTES >= flops / PEAK_F32 else "operations",
         library_ms=library_ms)
     emit("kernel_topk_filter", d=D, k=k_keep, dtype="float32", ms=ms, plain_ms=plain_ms,
-         library_ms=library_ms, library="torch.topk(|dw|, k)",
+         library_ms=library_ms, library="torch.topk(|dw|, k)", kernels_per_call=len(topk_kernels),
          bound_ms=kernels["topk_filter"]["bound_ms"], bound_bytes=nbytes)
     del inputs, worker_dw, da_r, v_r, da_2, v_2, args
 
@@ -321,6 +358,8 @@ def main() -> int:
     serve_shape = dict(B=SERVE_B, S=SERVE_PLEN, KV=8, G=5, hd=128)  # qwen3-14b's GQA
     cases = [(dict(serve_shape, B=2, S=1000), dt, c)
              for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
+    # The tensor-core kernel at another head dim (its swizzle) and G = 1.
+    cases += [(dict(B=2, S=1000, KV=8, G=1, hd=64), torch.bfloat16, c) for c in (True, False)]
     cases += [(serve_shape, dt, True) for dt in (torch.float32, torch.bfloat16)]
     for shape, dtype, causal in cases:
         B_, S_, KV_, G_, hd_ = (shape[k] for k in ("B", "S", "KV", "G", "hd"))

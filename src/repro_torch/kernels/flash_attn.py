@@ -5,8 +5,14 @@ GQA attention forward over q (B, S, KV, G, hd) and k, v (B, S, KV, hd),
 causal or not, with an online softmax in float32 and the KV tiles above the
 diagonal skipped. See the CUDA source for the design and what bounds it.
 
+The launch dispatches on dtype to one of the source's two kernels, and both
+compute the same function: bfloat16 goes to the tensor-core kernel (both
+products on ``wgmma``, K/V loaded by TMA, P rounded to bfloat16 before
+P V), float32 to the CUDA-core kernel, which keeps full float32 products.
+
 Limits, checked here and raised on: float32 or bfloat16 tensors of one
-dtype on one CUDA device, contiguous, in those layouts; hd one of
+dtype on one CUDA device, contiguous, in those layouts, in bfloat16
+starting on a 16-byte boundary (the TMA's rule); hd one of
 :data:`HEAD_DIMS`; at most 64 query heads per KV head. Like the TPU kernel,
 it scales q by ``sm_scale`` (default ``hd ** -0.5``) itself: pass q not
 pre-scaled, or pre-scaled with ``sm_scale=1.0``.
@@ -49,6 +55,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"float32 and bfloat16, got {name} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attn: {name} is not contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attn: {name} does not start on a 16-byte boundary")
     for name, t in (("k", k), ("v", v)):
         if tuple(t.shape) != (B, S, KV, hd):
             raise ValueError(f"flash_attn: {name} must be {(B, S, KV, hd)}, "
@@ -63,9 +71,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              causal: bool = True,
                              sm_scale: float | None = None) -> torch.Tensor:
-    """Launch the kernel; returns (B, S, KV, G, hd) in q's dtype.
+    """Launch the kernel for q's dtype; returns (B, S, KV, G, hd) in that dtype.
 
-    The launch is asynchronous on the current stream.
+    bfloat16 runs the tensor-core kernel, float32 the CUDA-core kernel. The
+    launch is asynchronous on the current stream.
     """
     _check(q, k, v)
     B, S, KV, G, hd = q.shape

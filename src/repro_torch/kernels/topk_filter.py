@@ -10,12 +10,11 @@ Instead of sorting, the filter
   3. keeps everything ``>= t_hi`` and admits band elements in index order
      until the quota ``k - #{|x| >= t_hi}`` runs out.
 
-Steps 1-2 are shared: the ladder and band glue is PyTorch on the device (no
-value returns to the host), and only the counting differs. The kernel path
-(:func:`topk_filter_cuda`) counts and emits with the passes in
-``csrc/topk_filter.cu``; :func:`topk_filter_plain` transcribes the same
-select in PyTorch. Given the same edges both make the same integer decisions,
-so on the card their masks are equal exactly.
+:func:`topk_filter_plain` transcribes the select in PyTorch.
+:func:`topk_filter_cuda` runs all of it, the ladder and band glue included,
+as the four launches of ``csrc/topk_filter.cu``, which evaluate the ladders
+with the roundings torch uses on the card; both make the same integer
+decisions, so on the card their masks are equal exactly.
 
 Contract against the exact ``topk_filter_ref``: ``min(k, #{|x| >= floor})``
 entries are kept, ``sent + residual == dw`` bitwise, and every kept
@@ -108,12 +107,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.topk_filter_histogram.argtypes = [p, i, i, p, p, p]
-        lib.topk_filter_histogram.restype = i
-        lib.topk_filter_emit.argtypes = [p, i, i, p, p, p, p, p, p, p]
-        lib.topk_filter_emit.restype = i
-        lib.topk_filter_tile.argtypes = []
-        lib.topk_filter_tile.restype = i
+        lib.topk_filter_launch.argtypes = [p, i, i, i, p, p, p, p, p]
+        lib.topk_filter_launch.restype = i
+        lib.topk_filter_scratch_words.argtypes = []
+        lib.topk_filter_scratch_words.restype = i
         lib._typed = True
     return lib
 
@@ -121,9 +118,10 @@ def _lib() -> ctypes.CDLL:
 def topk_filter_cuda(dw: torch.Tensor, k: int):
     """The histogram select on the card: ``(sent, residual, mask)``.
 
-    ``dw`` is a contiguous 1-D float32 or bfloat16 CUDA tensor. Five launches
-    on the current stream: two histogram passes, then band count, tile scan
-    and emit. Nothing synchronizes with the host.
+    ``dw`` is a contiguous 1-D float32 or bfloat16 CUDA tensor. Four kernel
+    launches on the current stream with no PyTorch op between them; the
+    outputs and one scratch buffer come from ``torch.empty``, and nothing
+    synchronizes with the host.
     """
     if not dw.is_cuda or dw.dim() != 1 or not dw.is_contiguous() or dw.dtype not in _DTYPES:
         raise ValueError(
@@ -133,27 +131,15 @@ def topk_filter_cuda(dw: torch.Tensor, k: int):
     if not 1 <= k <= d:
         raise ValueError(f"topk_filter: need 1 <= k <= d = {d}, got k = {k}")
     lib = _lib()
-    dtype = _DTYPES[dw.dtype]
     with torch.cuda.device(dw.device):
-        stream = torch.cuda.current_stream(dw.device).cuda_stream
-
-        def histogram(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
-            counts = torch.zeros(NUM_BUCKETS, dtype=torch.int32, device=x.device)
-            edges = edges.contiguous()
-            code = lib.topk_filter_histogram(x.data_ptr(), d, dtype, edges.data_ptr(),
-                                             counts.data_ptr(), stream)
-            _build.check(lib, NAME, code, "topk_filter histogram launch")
-            return counts
-
-        thresh, _, _ = _thresholds(dw, k, histogram)
-        n_tiles = -(-d // int(lib.topk_filter_tile()))
-        tiles = torch.empty((2, n_tiles), dtype=torch.int32, device=dw.device)
+        scratch = torch.empty(int(lib.topk_filter_scratch_words()), dtype=torch.int32,
+                              device=dw.device)
         sent = torch.empty_like(dw)
         residual = torch.empty_like(dw)
         mask = torch.empty(d, dtype=torch.bool, device=dw.device)
-        code = lib.topk_filter_emit(dw.data_ptr(), d, dtype, thresh.data_ptr(),
-                                    tiles[0].data_ptr(), tiles[1].data_ptr(),
-                                    sent.data_ptr(), residual.data_ptr(),
-                                    mask.data_ptr(), stream)
-    _build.check(lib, NAME, code, "topk_filter emit launch")
+        stream = torch.cuda.current_stream(dw.device).cuda_stream
+        code = lib.topk_filter_launch(dw.data_ptr(), d, _DTYPES[dw.dtype], k,
+                                      scratch.data_ptr(), sent.data_ptr(),
+                                      residual.data_ptr(), mask.data_ptr(), stream)
+    _build.check(lib, NAME, code, "topk_filter launch")
     return sent, residual, mask

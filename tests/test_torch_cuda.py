@@ -7,10 +7,12 @@ The file imports no JAX, so it also runs where JAX is not installed:
 
 Tolerances: the SDCA kernel sums its dot products in another order than the
 plain version, and the H dependent steps compound that, so rtol 1e-4 /
-atol 1e-5; the top-k kernel makes the plain version's integer decisions on
-the same edges, so its outputs are equal exactly; the flash kernel sums its
-float32 products in tiles where the plain version sums whole rows, so
-rtol 1e-5 / atol 2e-5 in float32 and atol 3e-2 in bfloat16.
+atol 1e-5; the top-k kernel computes the plain version's ladders with the
+same float32 roundings and makes its integer decisions, so its outputs are
+equal exactly; the flash kernel sums its float32 products in tiles where the
+plain version sums whole rows, so rtol 1e-5 / atol 2e-5 in float32 (the
+CUDA-core kernel), and in bfloat16 (the tensor-core kernel, which rounds P
+to bfloat16 before P V) atol 3e-2.
 """
 
 import numpy as np
@@ -95,6 +97,49 @@ def test_topk_kernel_equals_plain_and_meets_contract(cuda, dtype, d, k):
     assert float(kept_min) >= float(drop_max) * (1 - 6e-3) - 1e-6
 
 
+def _topk_input(kind, d, dtype, device):
+    gen = torch.Generator(device=device).manual_seed(d + 1)
+    x = torch.randn(d, generator=gen, device=device)
+    if kind == "zeros":
+        x = torch.zeros(d, device=device)
+    elif kind == "one_nonzero":
+        x = torch.zeros(d, device=device)
+        x[d // 2] = -3.0
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["randn", "zeros", "one_nonzero"])
+@pytest.mark.parametrize("d", [1, 1000, 1024, 1025, 47_236, 4_000_000])
+def test_topk_kernel_over_sizes_and_inputs(cuda, d, kind, dtype):
+    """One design for every d: equal to the plain version, and its contract."""
+    x = _topk_input(kind, d, dtype, cuda)
+    mag = x.float().abs()
+    above = (mag >= mag.max() * topk_filter.FLOOR) & (mag > 0)  # the ladder never admits 0
+    for k in sorted({1, min(1000, d), d}):
+        before = ops.LAUNCHES["topk_filter"]
+        sent, resid, mask = ops.topk_filter(x, k)
+        assert ops.LAUNCHES["topk_filter"] == before + 1
+        s_p, r_p, m_p = topk_filter.topk_filter_plain(x, k)
+        assert torch.equal(mask, m_p) and torch.equal(sent, s_p) and torch.equal(resid, r_p)
+        assert int(mask.sum()) == min(k, int(above.sum()))
+        assert torch.equal(sent + resid, x)
+        kept_min = torch.where(mask, mag, torch.full_like(mag, torch.inf)).min()
+        drop_max = torch.where(mask, torch.zeros_like(mag), mag).max()
+        assert float(kept_min) >= float(drop_max) * (1 - 6e-3) - 1e-6
+
+
+def test_topk_kernel_never_syncs_with_the_host(cuda):
+    x = _topk_input("randn", 47_236, torch.float32, cuda)
+    ops.topk_filter(x, 1000)  # build and load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.topk_filter(x, 1000)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
 def test_topk_kernel_with_few_nonzeros(cuda):
     x = torch.zeros(2048, device=cuda)
     x[[3, 500, 1999]] = torch.tensor([1.0, -2.0, 0.5], device=cuda)
@@ -158,6 +203,33 @@ def test_flash_kernel_bf16(cuda, causal):
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=3e-2)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 63, 129, 1000, 2049])
+@pytest.mark.parametrize("G", [1, 5, 8])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_kernel_bf16_tensor_core_shapes(cuda, hd, G, S, causal):
+    """Every hd's swizzle and descriptors, ragged S, and a bitwise repeat."""
+    q, k, v = _flash_inputs(1, S, 2, G, hd, cuda, torch.bfloat16)
+    before = ops.LAUNCHES["flash_attention_fwd"]
+    out = ops.flash_attention_fwd(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention_fwd"] == before + 1
+    want = ref.flash_attention_fwd_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=3e-2)
+    assert torch.equal(out, ops.flash_attention_fwd(q, k, v, causal=causal))
+
+
+def test_flash_kernel_bf16_agrees_with_sdpa_at_the_serve_shape(cuda):
+    """qwen3-14b's prefill shape against SDPA (timed in chip_smoke.py, never used)."""
+    B, S, KV, G, hd = 4, 2048, 8, 5, 128
+    q, k, v = _flash_inputs(B, S, KV, G, hd, cuda, torch.bfloat16)
+    out = ops.flash_attention_fwd(q, k, v, causal=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        q.reshape(B, S, KV * G, hd).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
+    torch.testing.assert_close(out.float(), sdpa.transpose(1, 2).reshape(q.shape).float(),
+                               rtol=0, atol=3e-2)
+
+
 def test_flash_kernel_takes_prescaled_q(cuda):
     q, k, v = _flash_inputs(1, 130, 2, 5, 64, cuda)
     torch.testing.assert_close(ops.flash_attention_fwd(q * 0.125, k, v, sm_scale=1.0),
@@ -174,3 +246,7 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         ops.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attn.flash_attention_fwd_cuda(q, k.cpu(), v)
+    qb, kb, vb = (t.bfloat16() for t in _flash_inputs(1, 17, 2, 2, 16, cuda))
+    k_off = kb.flatten()[4:4 + 16 * 2 * 16].view(1, 16, 2, 16)  # starts 8 bytes in
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention_fwd(qb[:, :16], k_off, vb[:, :16])
