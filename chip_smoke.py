@@ -4,10 +4,13 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all started together), holds each one against its plain
-PyTorch version at the main paths' shapes and times both, then drives the
+PyTorch version at the main paths' shapes and times both (the SDCA kernel
+for each of its three losses, and at each cluster size that fits, beside
+the serial floor its probe kernel measures), then drives the
 main paths through the port's entry points: at RCV1 width (d = 47,236) the
 paper's ACPD loop, the CoCoA+ baseline and the Table-I message filter on the
-workers' updates; then batched greedy serving of qwen3-14b at full width and
+workers' updates, and a short CoCoA+ run with the smoothed hinge on the same
+data; then batched greedy serving of qwen3-14b at full width and
 depth (40 layers, bfloat16, random weights from a seed), whose prefill runs
 every attention layer through the flash-attention kernel, and a check of
 the prefill path against the decode path on the card. It also checks that
@@ -28,6 +31,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -59,6 +63,10 @@ CONSIST_LAYERS = 2
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+
+# The SDCA kernel's losses by their template argument.
+SDCA_LOSSES = ("ridge", "smoothed_hinge", "logistic")
+HINGE_ROUNDS = 3
 
 
 def emit(phase: str, **fields) -> None:
@@ -92,6 +100,27 @@ def errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return float(diff.max()), float(rel.max()) if rel.numel() else 0.0
 
 
+def ptxas_by_entry(log: pathlib.Path) -> dict[str, dict]:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v`` log."""
+    out, name = {}, None
+    for ln in log.read_text().splitlines() if log.exists() else []:
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            inst = re.search(r"sdca_cluster_kernelILi(\d)ELi(\d+)E", name)
+            if inst:
+                name = f"sdca_cluster_kernel<{SDCA_LOSSES[int(inst[1])]}, M={inst[2]}>"
+            probe = re.search(r"cluster_probe_kernelILb(\d)E", name)
+            if probe:
+                name = f"cluster_probe_kernel<{'st_async' if probe[1] == '1' else 'barrier'}>"
+            out[name] = dict(registers=None, spill_bytes=0)
+        elif name and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[name]["spill_bytes"] = nums[1] + nums[2]  # stack frame, stores, loads
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -109,7 +138,8 @@ def main() -> int:
     from repro_torch.core.simulate import ClusterModel
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_token_dataset
-    from repro_torch.kernels import _build, ops, ref, topk_filter as topk_mod
+    from repro_torch.kernels import _build, ops, ref, sdca_inner as sdca_mod
+    from repro_torch.kernels import topk_filter as topk_mod
     from repro_torch.launch import serve
     from repro_torch.models import decode_step, model_spec, prefill
     from repro_torch.models.param import tree_materialize
@@ -164,39 +194,85 @@ def main() -> int:
     kernels: dict[str, dict] = {}
 
     # -- kernel 1: sdca_inner at K=8, n_k=4096, d=47236, H=1000 --------------
+    # All three losses against their plain versions; ridge also at both
+    # cluster sizes an H100 can hold all 8 workers of (C = 16 fits 7 at once),
+    # beside the serial floor from the exchange probe.
     gen = torch.Generator(device=dev).manual_seed(SEED)
     idx = torch.randint(0, N_K, (K, H), generator=gen, device=dev, dtype=torch.int32)
     w_eff = 0.01 * torch.randn(K, D, generator=gen, device=dev)
     alpha = 0.01 * torch.randn(K, N_K, generator=gen, device=dev)
+    # Dual-feasible for the classification losses: y * alpha in (0, 1).
+    alpha_cls = problem.y * (0.05 + 0.55 * torch.rand(K, N_K, generator=gen, device=dev))
     sp = GAMMA * B
-    args = (w_eff, alpha, problem.X, problem.y, norms, LAM, n, sp, idx)
-    da_k, v_k = ops.sdca_epoch(*args)
-    da_r, v_r = ref.sdca_inner_ref(*args)
-    torch.cuda.synchronize()
-    da_abs, da_rel = errors(da_k, da_r)
-    v_abs, v_rel = errors(v_k, v_r)
-    da_2, v_2 = ops.sdca_epoch(*args)
-    bitwise = bool(torch.equal(da_k, da_2) and torch.equal(v_k, v_2))
-    ok = (torch.allclose(da_k, da_r, rtol=1e-4, atol=1e-5)
-          and torch.allclose(v_k, v_r, rtol=1e-4, atol=1e-5))
-    ms = time_ms(lambda: ops.sdca_epoch(*args), warmup=2, reps=10)
-    plain_ms = time_ms(lambda: ref.sdca_inner_ref(*args), warmup=1, reps=3)
+    plan = sdca_mod.plan(K, N_K, D)
+    sdca_ptxas = ptxas_by_entry(_build.library_path("sdca_inner").with_suffix(".log"))
     rows = sum(int(torch.unique(idx[k]).numel()) for k in range(K))
     nbytes = (rows * D * 4 + K * D * 4 * 2 + K * N_K * 4 * 4 + K * H * 4)
     flops = 6 * D * H * K  # two dot products and one axpy per step
     bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_F32) * 1e3
+    by_loss = {}
+    for loss in ("ridge", "smoothed_hinge", "logistic"):
+        args = (w_eff, alpha if loss == "ridge" else alpha_cls, problem.X, problem.y, norms,
+                LAM, n, sp, idx)
+        da_k, v_k = ops.sdca_epoch(*args, loss=loss)
+        da_r, v_r = ref.sdca_inner_ref(*args, loss=loss)
+        torch.cuda.synchronize()
+        da_abs, da_rel = errors(da_k, da_r)
+        v_abs, v_rel = errors(v_k, v_r)
+        da_2, v_2 = ops.sdca_epoch(*args, loss=loss)
+        bitwise = bool(torch.equal(da_k, da_2) and torch.equal(v_k, v_2))
+        ok = (torch.allclose(da_k, da_r, rtol=1e-4, atol=1e-5)
+              and torch.allclose(v_k, v_r, rtol=1e-4, atol=1e-5))
+        ms = time_ms(lambda: ops.sdca_epoch(*args, loss=loss), warmup=2, reps=10)
+        plain_ms = time_ms(lambda: ref.sdca_inner_ref(*args, loss=loss), warmup=1,
+                           reps=3 if loss == "ridge" else 1)
+        by_loss[loss] = dict(ms=ms, plain_ms=plain_ms, us_per_step=ms * 1e3 / H,
+                             max_abs_err=max(da_abs, v_abs), max_rel_err=max(da_rel, v_rel))
+        emit("kernel_sdca_inner_check", loss=loss, shape=dict(K=K, n_k=N_K, d=D, H=H),
+             dalpha_abs=da_abs, dalpha_rel=da_rel, v_abs=v_abs, v_rel=v_rel, rtol=1e-4,
+             atol=1e-5, within=ok, repeat_bitwise=bitwise, ms=ms, plain_ms=plain_ms,
+             us_per_step=ms * 1e3 / H)
+        check(ok, f"sdca_inner ({loss}) within rtol 1e-4 / atol 1e-5 of its plain version")
+        check(bitwise, f"sdca_inner ({loss}) repeats bit for bit")
+        del da_k, v_k, da_r, v_r, da_2, v_2
+    # The two cluster sizes that fit (below 8 a slice outgrows a CTA): the
+    # kernel's ms, and the serial floor, H round trips of the kernel's
+    # exchange (st.async) from the probe, beside those of DSMEM stores and
+    # barrier.cluster.
+    args = (w_eff, alpha, problem.X, problem.y, norms, LAM, n, sp, idx)
+    by_cluster = {}
+    for C in (16, 8):
+        p_c = sdca_mod._plan_dict(K, N_K, D, C)
+        ms_c = time_ms(lambda: sdca_mod._launch(*args, "ridge", p_c), warmup=2, reps=10)
+        floor = {kind: time_ms(lambda: sdca_mod.exchange_probe(K, C, H, dev,
+                                                               barrier=kind == "barrier"),
+                               warmup=2, reps=10) for kind in ("st_async", "barrier")}
+        by_cluster[C] = dict(ms=ms_c, us_per_step=ms_c * 1e3 / H, stages=p_c["stages"],
+                             per_thread=p_c["per_thread"], ctas=p_c["ctas"],
+                             active_clusters=p_c["active_clusters"],
+                             smem_bytes=p_c["smem_bytes"], floor_ms=floor["st_async"],
+                             round_trip_us=floor["st_async"] * 1e3 / H,
+                             barrier_floor_ms=floor["barrier"],
+                             barrier_round_trip_us=floor["barrier"] * 1e3 / H)
+    ridge = by_loss["ridge"]
     kernels["sdca_inner"] = dict(
         name="sdca_inner", route="cuda", source="src/repro_torch/csrc/sdca_inner.cu",
-        replaces="src/repro/kernels/sdca_inner.py:78", max_abs_err=max(da_abs, v_abs),
-        max_rel_err=max(da_rel, v_rel), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        replaces="src/repro/kernels/sdca_inner.py:78", max_abs_err=max(
+            r["max_abs_err"] for r in by_loss.values()),
+        max_rel_err=max(r["max_rel_err"] for r in by_loss.values()), ms=ridge["ms"],
+        plain_ms=ridge["plain_ms"], bound_ms=bound_ms,
         bound_by="bytes" if nbytes / PEAK_BYTES >= flops / PEAK_F32 else "operations",
-        library_ms=None)
-    emit("kernel_sdca_inner", shape=dict(K=K, n_k=N_K, d=D, H=H), dalpha_abs=da_abs,
-         dalpha_rel=da_rel, v_abs=v_abs, v_rel=v_rel, rtol=1e-4, atol=1e-5,
-         within=ok, repeat_bitwise=bitwise, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-         unique_rows=rows, bound_bytes=nbytes, bound_flops=flops)
-    check(ok, "sdca_inner within rtol 1e-4 / atol 1e-5 of sdca_inner_ref")
-    check(bitwise, "sdca_inner repeats bit for bit")
+        library_ms=None, cluster=plan["cluster"],
+        ms_by_loss={loss: r["ms"] for loss, r in by_loss.items()})
+    emit("kernel_sdca_inner", shape=dict(K=K, n_k=N_K, d=D, H=H), cluster=plan["cluster"],
+         ctas=plan["ctas"], stages=plan["stages"], per_thread=plan["per_thread"],
+         smem_bytes=plan["smem_bytes"],
+         active_clusters=plan["active_clusters"], max_d=sdca_mod.max_d(N_K),
+         by_loss=by_loss, by_cluster=by_cluster,
+         serial_floor_ms=by_cluster[plan["cluster"]]["floor_ms"], bound_ms=bound_ms,
+         unique_rows=rows, bound_bytes=nbytes, bound_flops=flops, ptxas=sdca_ptxas)
+    check(plan["cluster"] > 1, "sdca_inner runs one cluster of several CTAs per worker")
+    check(all(r["spill_bytes"] == 0 for r in sdca_ptxas.values()), "sdca_inner spills nothing")
 
     # -- kernel 2: topk_filter at d=47236, k=1000, float32 and bfloat16 ------
     worker_dw = sdca.solve_subproblem(
@@ -262,7 +338,7 @@ def main() -> int:
     emit("kernel_topk_filter", d=D, k=k_keep, dtype="float32", ms=ms, plain_ms=plain_ms,
          library_ms=library_ms, library="torch.topk(|dw|, k)", kernels_per_call=len(topk_kernels),
          bound_ms=kernels["topk_filter"]["bound_ms"], bound_bytes=nbytes)
-    del inputs, worker_dw, da_r, v_r, da_2, v_2, args
+    del inputs, worker_dw, args, alpha_cls
 
     # -- small input: the card's run against the host's on the same orders ---
     small = {}
@@ -322,6 +398,27 @@ def main() -> int:
           f"CoCoA+ launched sdca_inner {launches['cocoa_plus']['sdca_inner']} times")
     check(all(math.isfinite(g) for g in gaps_c) and gaps_c[-1] < gaps_c[0],
           "CoCoA+ gaps are finite and fall")
+
+    # -- main path 2b: CoCoA+ with the smoothed hinge on the same X ----------
+    # The same +-1 labels and rows (no second 6.2 GB problem); the dual
+    # starts at 0, which is feasible for the hinge.
+    hinge = dataclasses.replace(problem, loss="smoothed_hinge")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_h = acpd.run_method_reference(hinge, baselines.cocoa_plus(K, H=H), cluster,
+                                      num_outer=HINGE_ROUNDS, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["cocoa_plus_smoothed_hinge"] = dict(ops.LAUNCHES)
+    gaps_h = [r.gap for r in res_h.records]
+    emit("cocoa_plus_smoothed_hinge", loss=hinge.loss, rounds=len(gaps_h), gaps=gaps_h,
+         wall_s=wall, launches=launches["cocoa_plus_smoothed_hinge"])
+    check(launches["cocoa_plus_smoothed_hinge"]["sdca_inner"] == HINGE_ROUNDS,
+          "the hinge CoCoA+ run launched sdca_inner once a round")
+    check(all(math.isfinite(g) for g in gaps_h)
+          and all(b < a for a, b in zip(gaps_h, gaps_h[1:])),
+          "the hinge CoCoA+ gaps are finite and fall")
+    del hinge, res_h
 
     # -- main path 3: the Table-I filter on the workers' next updates --------
     # One local round of all K workers from the ACPD run's final state

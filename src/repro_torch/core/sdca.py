@@ -15,11 +15,9 @@ Closed-form coordinate maximizers:
 
 with ``a_i = alpha_i + dalpha_i`` and ``q_i = sigma' ||x_i||^2 / (lambda n)``.
 
-Dispatch: the ridge step, which is the paper's, goes through
-``kernels.ops.sdca_epoch``: the hand-written CUDA kernel for tensors on the
-card, its plain PyTorch version for tensors on the CPU. The other two losses
-run the plain loop below on the CPU; on the card they raise until the kernel
-grows them (ROADMAP, queue B, "CUDA path for non-ridge losses").
+Dispatch: every loss goes through ``kernels.ops.sdca_epoch``: the
+hand-written CUDA kernel for tensors on the card, the plain loop below
+(``sdca_epoch_plain``) for tensors on the CPU.
 
 Visit orders are explicit: ``*_indices`` functions take them, the others
 draw them from a ``torch.Generator``. The JAX package draws them from
@@ -92,17 +90,9 @@ def solve_subproblem_all_indices(w_all, alpha, X, y, norms_sq, lam: float,
                                  n_global: int, sigma_prime: float, idx, *,
                                  loss: LossName) -> LocalSolveResult:
     """All K workers at once with explicit visit orders ``idx (K, H)``."""
-    if loss == "ridge":
-        dalpha, v = ops.sdca_epoch(w_all, alpha, X, y, norms_sq, lam,
-                                   n_global, sigma_prime, idx)
-        return LocalSolveResult(dalpha, v)
-    if X.is_cuda:
-        raise NotImplementedError(
-            f"the CUDA SDCA kernel computes the ridge step only; loss "
-            f"{loss!r} on the card waits for ROADMAP queue B, 'CUDA path for "
-            f"non-ridge losses' (pass device='cpu' to run it on the host)")
-    return sdca_epoch_plain(loss, w_all, alpha, X, y, norms_sq, lam, n_global,
-                            sigma_prime, idx)
+    dalpha, v = ops.sdca_epoch(w_all, alpha, X, y, norms_sq, lam, n_global,
+                               sigma_prime, idx, loss=loss)
+    return LocalSolveResult(dalpha, v)
 
 
 def solve_subproblem_indices(w_eff, alpha, X, y, norms_sq, lam: float,
@@ -111,7 +101,7 @@ def solve_subproblem_indices(w_eff, alpha, X, y, norms_sq, lam: float,
     """H sequential SDCA steps on one worker with an explicit visit order.
 
     Shapes: ``w_eff (d,)``, ``alpha, y, norms_sq (n_k,)``, ``X (n_k, d)``,
-    ``idx (H,)`` int32. On the card this is one kernel launch of one block.
+    ``idx (H,)`` int32. On the card this is one kernel launch of one cluster.
     """
     res = solve_subproblem_all_indices(
         w_eff[None], alpha[None], X[None], y[None], norms_sq[None], lam,

@@ -41,20 +41,21 @@ def topk_filter(dw: torch.Tensor, k: int):
 
 
 def sdca_epoch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
-               sigma_prime: float, idx):
-    """All-workers ridge SDCA epoch: ``(dalpha (K, n_k), v (K, d))``.
+               sigma_prime: float, idx, *, loss: str = "ridge"):
+    """All-workers SDCA epoch for ``loss``: ``(dalpha (K, n_k), v (K, d))``.
 
     ``idx (K, H)`` int32 is each worker's visit order. On the card this is
-    one launch of K blocks of the CUDA kernel; on the CPU it is
-    ``ref.sdca_inner_ref``.
+    one launch of the CUDA kernel, one thread-block cluster per worker, for
+    each of the three losses; on the CPU it is ``ref.sdca_inner_ref``, the
+    plain ``sdca_epoch_plain``.
     """
     if X.is_cuda:
         out = sdca_inner_cuda(w_eff, alpha, X, y, norms_sq, lam, n_global,
-                              sigma_prime, idx)
+                              sigma_prime, idx, loss=loss)
         LAUNCHES["sdca_inner"] += 1
         return out
     return ref.sdca_inner_ref(w_eff, alpha, X, y, norms_sq, lam, n_global,
-                              sigma_prime, idx)
+                              sigma_prime, idx, loss=loss)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: float | None = None):

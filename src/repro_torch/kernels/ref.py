@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels: the ground truth in tests.
 
-``sdca_inner_ref`` is the ridge worker step written out over a batch of K
-workers (the JAX package's ``vmap``); ``topk_filter_ref`` is the exact top-k
-split that the banded histogram filter is held against;
+``sdca_inner_ref`` is the worker step, for each of the three losses,
+written out over a batch of K workers (the JAX package's ``vmap``);
+``topk_filter_ref`` is the exact top-k split that the banded histogram
+filter is held against;
 ``flash_attention_fwd_ref`` is GQA attention with the whole score matrix
 materialised, which the flash kernel is held against.
 """
@@ -30,12 +31,12 @@ def topk_filter_ref(dw: torch.Tensor, k: int):
 
 
 def sdca_inner_ref(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
-                   sigma_prime: float, idx):
-    """Ridge SDCA epoch for K workers with explicit visit orders ``idx (K, H)``.
+                   sigma_prime: float, idx, *, loss: str = "ridge"):
+    """SDCA epoch for K workers with explicit visit orders ``idx (K, H)``.
 
     Returns ``(dalpha (K, n_k), v (K, d))``.
     """
-    dalpha, v = sdca.sdca_epoch_plain("ridge", w_eff, alpha, X, y, norms_sq,
+    dalpha, v = sdca.sdca_epoch_plain(loss, w_eff, alpha, X, y, norms_sq,
                                       lam, n_global, sigma_prime, idx)
     return dalpha, v
 

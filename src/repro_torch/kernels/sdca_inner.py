@@ -1,20 +1,30 @@
 """Launcher for the CUDA SDCA inner-loop kernel (``csrc/sdca_inner.cu``).
 
 Replaces the TPU kernel ``repro.kernels.sdca_inner.sdca_inner_pallas``: one
-ridge-SDCA epoch of H sequential coordinate steps for each of K workers, one
-thread block per worker with the worker's ``v`` in shared memory. See the
-CUDA source for the design and what bounds it.
+SDCA epoch of H sequential coordinate steps for each of K workers, for the
+ridge, smoothed-hinge and logistic losses. Each worker runs on one
+thread-block cluster of C CTAs that split ``d`` between them, with ``w_eff``
+and ``v`` in registers, the rows prefetched into shared memory, and each
+step's partial sums exchanged through distributed shared memory; see the
+CUDA source for the design and what bounds it, and :func:`plan` for how C
+is chosen.
 
 Limits, checked here and raised on: float32 tensors on one CUDA device,
-contiguous, ``idx`` int32; ``d`` at most :func:`max_d`, the floats of ``v``
-that fit one block's opt-in shared memory (232,448 bytes on Hopper, so a
-little over 58,000), which RCV1's ``d = 47,236`` lies inside. Steps whose index lies outside ``[0, n_k)`` are
-skipped by the kernel.
+contiguous, ``idx`` int32; ``d`` at most :func:`max_d`, which is 16 CTAs
+times the slice one CTA holds. A slice lives in registers (M floats of
+``w_eff``, of ``v`` and of two rows a thread, 256 threads, M = 12 or 24 by
+instance) and passes through four ring slots of M * 256 floats in shared
+memory beside the worker's ``dalpha``. On Hopper (232,448 bytes a CTA) that
+makes 98,304 up to ``n_k = 31,398`` and 49,152 up to 43,686 (RCV1's
+``d = 47,236`` at ``n_k = 4,096`` lies inside; the one-block design of the
+first slice stopped near 58,000). Steps whose index lies outside
+``[0, n_k)`` are skipped by the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,31 +32,71 @@ from repro_torch.core.objectives import lam_n_f32
 from repro_torch.kernels import _build
 
 NAME = "sdca_inner"
+LOSSES = {"ridge": 0, "smoothed_hinge": 1, "logistic": 2}
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sdca_inner_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, f, p]
+        lib.sdca_inner_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, i,
+                                          i, p]
         lib.sdca_inner_launch.restype = i
-        lib.sdca_inner_max_d.argtypes = []
+        lib.sdca_inner_plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.sdca_inner_plan.restype = i
+        lib.sdca_inner_max_d.argtypes = [i]
         lib.sdca_inner_max_d.restype = i
+        lib.sdca_inner_probe_launch.argtypes = [i, i, i, i, p, p]
+        lib.sdca_inner_probe_launch.restype = i
         lib._typed = True
     return lib
 
 
-def max_d() -> int:
-    """Largest ``d`` the kernel takes on the current device."""
-    return int(_lib().sdca_inner_max_d())
+@functools.lru_cache(maxsize=None)
+def _max_d(device: int, n_k: int) -> int:
+    return int(_lib().sdca_inner_max_d(n_k))
 
 
-def sdca_inner_cuda(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
-                    sigma_prime: float, idx) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel; returns ``(dalpha (K, n_k), v (K, d))``.
+def max_d(n_k: int) -> int:
+    """Largest ``d`` the kernel takes on the current device for ``n_k`` rows."""
+    return _max_d(torch.cuda.current_device(), n_k)
 
-    The launch is asynchronous on the current stream.
+
+@functools.lru_cache(maxsize=None)
+def _plan(device: int, K: int, n_k: int, d: int, cluster: int) -> tuple[int, ...]:
+    out = (ctypes.c_int * 5)()
+    lib = _lib()
+    _build.check(lib, NAME, lib.sdca_inner_plan(K, n_k, d, cluster, out),
+                 "sdca_inner plan")
+    return tuple(out)
+
+
+def _plan_dict(K: int, n_k: int, d: int, cluster: int) -> dict[str, int]:
+    C, stages, smem, active, per_thread = _plan(torch.cuda.current_device(), K, n_k,
+                                                d, cluster)
+    return dict(cluster=C, stages=stages, smem_bytes=smem, active_clusters=active,
+                per_thread=per_thread, ctas=K * C)
+
+
+def plan(K: int, n_k: int, d: int) -> dict[str, int]:
+    """How the kernel launches on the current device.
+
+    ``cluster`` (C) is the largest of 16, 8, 4, 2, 1 whose slices hold at
+    least 32 floats, fit the registers of one of the kernel's instances
+    (``per_thread`` floats of each of ``w_eff``, ``v`` and two rows a thread:
+    12 or 24) and the shared memory with four ring slots or more
+    (``stages``), and keep all K clusters resident at once; if none keeps K
+    resident, the one that runs them in the fewest waves of
+    ``active_clusters``, the larger C on a tie. It depends on the device, K,
+    n_k and d only (and is computed once for each), so a rerun repeats bit
+    for bit. ``cluster`` is 0 when nothing fits.
     """
+    return _plan_dict(K, n_k, d, 0)
+
+
+def _check_inputs(w_eff, alpha, X, y, norms_sq, idx, loss: str) -> None:
+    if loss not in LOSSES:
+        raise ValueError(f"sdca_inner: unknown loss {loss!r}")
     K, n_k, d = X.shape
     H = idx.shape[1]
     shapes = {"w_eff": (w_eff, (K, d)), "alpha": (alpha, (K, n_k)),
@@ -62,18 +112,65 @@ def sdca_inner_cuda(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
                 f"sdca_inner: {name} must be a contiguous {want} tensor of "
                 f"shape {shape}, got {t.dtype} {tuple(t.shape)}"
                 f"{'' if t.is_contiguous() else ' (not contiguous)'}")
-    lib = _lib()
+
+
+def sdca_inner_cuda(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
+                    sigma_prime: float, idx, *,
+                    loss: str = "ridge") -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel by :func:`plan`; returns ``(dalpha (K, n_k), v (K, d))``.
+
+    The launch is asynchronous on the current stream.
+    """
+    _check_inputs(w_eff, alpha, X, y, norms_sq, idx, loss)
     with torch.cuda.device(X.device):
-        limit = int(lib.sdca_inner_max_d())
+        return _launch(w_eff, alpha, X, y, norms_sq, lam, n_global, sigma_prime, idx,
+                       loss, plan(*X.shape))
+
+
+def _launch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int, sigma_prime: float,
+            idx, loss: str, p: dict[str, int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch with the plan ``p``, on inputs :func:`sdca_inner_cuda` has checked.
+
+    :func:`sdca_inner_cuda` passes :func:`plan`'s; a measurement of another
+    cluster size passes ``_plan_dict(K, n_k, d, C)``.
+    """
+    K, n_k, d = X.shape
+    with torch.cuda.device(X.device):
+        limit = max_d(n_k)
         if d > limit:
-            raise ValueError(f"sdca_inner: d = {d} exceeds the kernel's limit "
-                             f"of {limit} (v must fit one block's shared memory)")
+            raise ValueError(f"sdca_inner: d = {d} exceeds the kernel's limit of "
+                             f"{limit} at n_k = {n_k} (a cluster's shared memory)")
+        if p["cluster"] == 0:
+            raise ValueError(f"sdca_inner: no cluster takes K = {K}, n_k = {n_k}, "
+                             f"d = {d}")
         dalpha = torch.empty((K, n_k), dtype=torch.float32, device=X.device)
         v = torch.empty((K, d), dtype=torch.float32, device=X.device)
         stream = torch.cuda.current_stream(X.device).cuda_stream
+        lib = _lib()
         code = lib.sdca_inner_launch(
             w_eff.data_ptr(), alpha.data_ptr(), X.data_ptr(), y.data_ptr(),
             norms_sq.data_ptr(), idx.data_ptr(), dalpha.data_ptr(), v.data_ptr(),
-            K, n_k, d, H, lam_n_f32(lam, n_global), float(sigma_prime), stream)
+            K, n_k, d, idx.shape[1], lam_n_f32(lam, n_global), float(sigma_prime),
+            LOSSES[loss], p["cluster"], p["stages"], p["per_thread"], stream)
     _build.check(lib, NAME, code, "sdca_inner launch")
     return dalpha, v
+
+
+def exchange_probe(K: int, cluster_size: int, H: int, device, *,
+                   barrier: bool = False) -> torch.Tensor:
+    """Launch the probe kernel: K clusters run H exchange round trips.
+
+    The exchange is the kernel's: every warp of every CTA sends one float4
+    to every CTA by ``st.async``, completing on the receiver's mbarrier;
+    with ``barrier``, plain DSMEM stores and ``barrier.cluster`` instead. It
+    measures the serial floor of the design, timed by the caller; it is not
+    a step of any path, so it counts no launch.
+    """
+    out = torch.empty(K, dtype=torch.float32, device=device)
+    lib = _lib()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        code = lib.sdca_inner_probe_launch(K, cluster_size, H, 0 if barrier else 1,
+                                           out.data_ptr(), stream)
+    _build.check(lib, NAME, code, "sdca_inner probe launch")
+    return out

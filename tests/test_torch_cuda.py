@@ -6,8 +6,8 @@ The file imports no JAX, so it also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the SDCA kernel sums its dot products in another order than the
-plain version, and the H dependent steps compound that, so rtol 1e-4 /
-atol 1e-5; the top-k kernel computes the plain version's ladders with the
+plain version (per CTA of the cluster, then over the cluster), and the H
+dependent steps compound that, so rtol 1e-4 / atol 1e-5 for every loss; the top-k kernel computes the plain version's ladders with the
 same float32 roundings and makes its integer decisions, so its outputs are
 equal exactly; the flash kernel sums its float32 products in tiles where the
 plain version sums whole rows, so rtol 1e-5 / atol 2e-5 in float32 (the
@@ -35,47 +35,124 @@ def cuda():
     return torch.device("cuda")
 
 
-def _sdca_inputs(K, n_k, d, H, device):
+def _sdca_inputs(K, n_k, d, H, device, loss="ridge", idx_kind="uniform"):
     rng = np.random.default_rng(K * 1000 + n_k)
     X = rng.standard_normal((K, n_k, d)).astype(np.float32) / np.float32(np.sqrt(d))
     y = np.sign(rng.standard_normal((K, n_k))).astype(np.float32)
     w = (rng.standard_normal((K, d)) * 0.1).astype(np.float32)
-    alpha = (rng.standard_normal((K, n_k)) * 0.05).astype(np.float32)
+    if loss == "ridge":
+        alpha = (rng.standard_normal((K, n_k)) * 0.05).astype(np.float32)
+    else:  # dual-feasible: y * alpha in (0, 1)
+        alpha = (y * rng.uniform(0.05, 0.6, (K, n_k))).astype(np.float32)
     idx = rng.integers(0, n_k, (K, H)).astype(np.int32)
+    if idx_kind == "repeats_and_outside":
+        idx[:, 1::7] = idx[:, 0::7][:, : idx[:, 1::7].shape[1]]  # the same row twice in a row
+        idx[:, 3::11] = -1
+        idx[:, 5::13] = n_k
+        idx[:, -1] = n_k + 5
+    elif idx_kind == "one_inside":  # every step skipped but one: the epoch runs one step
+        keep = idx[:, H // 2].copy()
+        idx[:] = n_k + 3
+        idx[:, H // 2] = keep
+    elif idx_kind == "none_inside":  # every step skipped
+        idx[:] = -2
     t = [torch.from_numpy(a).to(device) for a in (w, alpha, X, y)]
     norms = (t[2] * t[2]).sum(-1)
     return [*t, norms], torch.from_numpy(idx).to(device)
 
 
-@pytest.mark.parametrize("K,n_k,d,H", [(1, 32, 128, 64), (4, 64, 256, 200),
-                                       (3, 128, 512, 150), (8, 16, 1024, 50),
-                                       (2, 64, 47_236, 100)])
-def test_sdca_kernel_matches_plain_and_repeats_bitwise(cuda, K, n_k, d, H):
-    args, idx = _sdca_inputs(K, n_k, d, H, cuda)
+# (K, n_k, d, H, idx_kind); "max" is d = max_d(n_k), the kernel's limit.
+SDCA_SHAPES = [(1, 32, 128, 64, "uniform"), (4, 64, 256, 200, "uniform"),
+               (3, 128, 512, 150, "uniform"), (8, 16, 1024, 50, "uniform"),
+               (2, 64, 47_236, 100, "uniform"),
+               (2, 64, 1001, 120, "uniform"),  # odd d: no row is 16-byte aligned
+               (2, 32, 47_237, 60, "uniform"),
+               (3, 32, 300, 80, "uniform"),  # d below 16 x 32: a smaller cluster
+               (2, 16, 20, 40, "uniform"),  # d below one warp: C = 1
+               (1, 16, "max", 20, "uniform"),
+               (16, 64, 4096, 100, "uniform"),  # K = 16 clusters
+               (4, 64, 2048, 300, "repeats_and_outside"),
+               (2, 16, 256, 1, "uniform"),  # one step
+               (1, 32, 47_236, 1, "uniform"),
+               (2, 32, 47_236, 2, "uniform"),
+               (3, 32, 1001, 40, "one_inside"),
+               (2, 16, 512, 30, "none_inside")]
+
+
+@pytest.mark.parametrize("loss", ["ridge", "smoothed_hinge", "logistic"])
+@pytest.mark.parametrize("K,n_k,d,H,idx_kind", SDCA_SHAPES)
+def test_sdca_kernel_matches_plain_and_repeats_bitwise(cuda, K, n_k, d, H, idx_kind, loss):
+    if d == "max":
+        d = sdca_inner.max_d(n_k)
+    args, idx = _sdca_inputs(K, n_k, d, H, cuda, loss, idx_kind)
     lam, n, sp = 1e-3, K * n_k, 2.0
     before = ops.LAUNCHES["sdca_inner"]
-    da_k, v_k = ops.sdca_epoch(*args, lam, n, sp, idx)
+    da_k, v_k = ops.sdca_epoch(*args, lam, n, sp, idx, loss=loss)
     assert ops.LAUNCHES["sdca_inner"] == before + 1
-    da_r, v_r = ref.sdca_inner_ref(*args, lam, n, sp, idx)
+    # The kernel skips steps outside [0, n_k); the plain loop is given the
+    # order without them (they lie in the same columns for every worker).
+    inside = ((idx >= 0) & (idx < n_k)).all(0)
+    da_r, v_r = sdca.sdca_epoch_plain(loss, *args, lam, n, sp, idx[:, inside])
     torch.testing.assert_close(da_k, da_r, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(v_k, v_r, rtol=1e-4, atol=1e-5)
-    da_2, v_2 = ops.sdca_epoch(*args, lam, n, sp, idx)
+    da_2, v_2 = ops.sdca_epoch(*args, lam, n, sp, idx, loss=loss)
     assert torch.equal(da_k, da_2) and torch.equal(v_k, v_2)  # no atomics
+
+
+@pytest.mark.parametrize("C", [8, 16])
+def test_sdca_kernel_at_every_cluster_size(cuda, C):
+    # K = 16 workers at RCV1 width, at both cluster sizes whose slices fit a
+    # CTA (below C = 8 they do not), whether or not all 16 clusters are
+    # resident at once.
+    K, n_k, d, H = 16, 64, 47_236, 50
+    args, idx = _sdca_inputs(K, n_k, d, H, cuda, "logistic")
+    lam, n, sp = 1e-3, K * n_k, 2.0
+    plan = sdca_inner._plan_dict(K, n_k, d, C)
+    assert plan["cluster"] == C and plan["ctas"] == K * C and plan["stages"] >= 4
+    da_k, v_k = sdca_inner._launch(*args, lam, n, sp, idx, "logistic", plan)
+    da_r, v_r = sdca.sdca_epoch_plain("logistic", *args, lam, n, sp, idx)
+    torch.testing.assert_close(da_k, da_r, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(v_k, v_r, rtol=1e-4, atol=1e-5)
+
+
+def test_sdca_kernel_plan_follows_its_rule(cuda):
+    main = sdca_inner.plan(8, 4096, 47_236)
+    assert main["cluster"] > 1 and 4 <= main["stages"] <= 8
+    assert main["per_thread"] * 256 * main["cluster"] >= 47_236
+    assert main["active_clusters"] >= 8 or main["cluster"] == 16
+    assert sdca_inner.plan(2, 16, 20)["cluster"] == 1  # a slice holds >= 32 floats
+    assert sdca_inner.plan(1, 16, 32 * 16)["cluster"] == 16
+    assert sdca_inner.plan(8, 4096, 47_236) == main  # a function of (device, K, n_k, d)
+    # Where no C keeps all K clusters resident, the fewest waves, the larger C
+    # on a tie (at K = 16 and RCV1's shape an H100 holds 7 clusters of 16 and
+    # 15 of 8).
+    for K, n_k, d in ((16, 4096, 47_236), (64, 64, 4096), (40, 16, 600)):
+        chosen = sdca_inner.plan(K, n_k, d)
+        waves = -(-K // chosen["active_clusters"])
+        for C in (16, 8, 4, 2, 1):
+            other = sdca_inner._plan_dict(K, n_k, d, C)
+            if other["cluster"]:
+                other_waves = -(-K // other["active_clusters"])
+                assert waves < other_waves or (waves == other_waves
+                                               and chosen["cluster"] >= C)
 
 
 def test_sdca_kernel_refuses_what_it_does_not_take(cuda):
     args, idx = _sdca_inputs(1, 8, 64, 4, cuda)
-    big = sdca_inner.max_d() + 1
+    big = sdca_inner.max_d(2) + 1
     wide, _ = _sdca_inputs(1, 2, big, 4, cuda)
     with pytest.raises(ValueError, match="exceeds the kernel's limit"):
         ops.sdca_epoch(*wide, 1e-3, 2, 1.0, idx[:, :4].clamp(max=1))
     with pytest.raises(ValueError, match="int32"):
         ops.sdca_epoch(*args, 1e-3, 8, 1.0, idx.long())
+    # Every loss launches the kernel, once each, through the solver's entry.
     x, y = args[2][0], args[3][0]
-    for loss in ("smoothed_hinge", "logistic"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sdca.solve_subproblem_indices(args[0][0], args[1][0], x, y, args[4][0],
-                                          1e-3, 8, 1.0, idx[0], loss=loss)
+    for loss in ("ridge", "smoothed_hinge", "logistic"):
+        before = ops.LAUNCHES["sdca_inner"]
+        res = sdca.solve_subproblem_indices(args[0][0], args[1][0], x, y, args[4][0],
+                                            1e-3, 8, 1.0, idx[0], loss=loss)
+        assert ops.LAUNCHES["sdca_inner"] == before + 1
+        assert res.v.is_cuda and bool(torch.isfinite(res.v).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

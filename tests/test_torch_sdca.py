@@ -2,7 +2,7 @@
 
 Inputs are made with numpy from a seed and handed to both packages, visit
 orders included. Held against ``repro.kernels.ref.sdca_inner_ref`` and
-``repro.core.sdca``, not the Pallas kernel (whose interpret mode misses its
+``repro.core.sdca`` for all three losses, not the Pallas kernel (whose interpret mode misses its
 own tolerance at one of these shapes). Tolerance rtol 1e-5 / atol 1e-6: the
 same float32 steps, with the dot products summed in another order.
 """
@@ -76,6 +76,45 @@ def test_solve_subproblem_indices_matches_jax(loss, K, n_k, d, H):
     tb = tsdca.solve_subproblem_all_indices(*targs, lam, n, sp,
                                             torch.from_numpy(a["idx"]), loss=loss)
     np.testing.assert_allclose(tb.v[K - 1].numpy(), t.v.numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("loss", ["ridge", "smoothed_hinge", "logistic"])
+@pytest.mark.parametrize("K,n_k,d,H", SHAPES)
+def test_ops_sdca_epoch_matches_jax_per_worker(loss, K, n_k, d, H):
+    # The dispatch layer on the CPU, every loss, against the JAX package's
+    # solver run worker by worker along the same visit orders.
+    a = _inputs(K, n_k, d, H, loss)
+    lam, n, sp = 1e-3, K * n_k, 2.0
+    before = dict(ops.LAUNCHES)
+    da_t, v_t = ops.sdca_epoch(*_args(a, "torch"), lam, n, sp, torch.from_numpy(a["idx"]),
+                               loss=loss)
+    assert ops.LAUNCHES == before
+    jargs = _args(a, "jax")
+    for k in range(K):
+        j = jsdca.solve_subproblem_indices(*(x[k] for x in jargs), lam, n, sp,
+                                           jnp.asarray(a["idx"][k]), loss=loss)
+        np.testing.assert_allclose(da_t[k].numpy(), np.asarray(j.delta_alpha),
+                                   rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(v_t[k].numpy(), np.asarray(j.v), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("loss", ["ridge", "smoothed_hinge", "logistic"])
+def test_solver_sends_every_loss_through_the_dispatch_layer(loss, monkeypatch):
+    a = _inputs(2, 32, 128, 40, loss)
+    calls = []
+    real = ops.sdca_epoch
+
+    def recording(*args, **kwargs):
+        calls.append(kwargs.get("loss"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "sdca_epoch", recording)
+    res = tsdca.solve_subproblem_all_indices(*_args(a, "torch"), 1e-3, 64, 1.5,
+                                             torch.from_numpy(a["idx"]), loss=loss)
+    assert calls == [loss]
+    da, v = tsdca.sdca_epoch_plain(loss, *_args(a, "torch"), 1e-3, 64, 1.5,
+                                   torch.from_numpy(a["idx"]))
+    assert torch.equal(res.delta_alpha, da) and torch.equal(res.v, v)
 
 
 @pytest.mark.parametrize("loss", ["ridge", "smoothed_hinge", "logistic"])
