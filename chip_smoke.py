@@ -6,11 +6,17 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all started together), holds each one against its plain
 PyTorch version at the main paths' shapes and times both (the SDCA kernel
 for each of its three losses, and at each cluster size that fits, beside
-the serial floor its probe kernel measures), then drives the
+the serial floor its probe kernel measures, and with a worker map that
+launches 4 of the 8 workers), then drives the
 main paths through the port's entry points: at RCV1 width (d = 47,236) the
 paper's ACPD loop, the CoCoA+ baseline and the Table-I message filter on the
 workers' updates, and a short CoCoA+ run with the smoothed hinge on the same
-data; then batched greedy serving of qwen3-14b at full width and
+data; the same ACPD and CoCoA+ runs through the protocol engine
+(``run_method`` / ``Session``: one SDCA launch per worker group, deferred gap
+evaluation), held to the loops' accounting and gaps, and a few rounds of
+every other engine protocol and local solver at that width, each with the
+launch count its rule predicts; each protocol on a small problem on the
+card against the host; then batched greedy serving of qwen3-14b at full width and
 depth (40 layers, bfloat16, random weights from a seed), whose prefill runs
 every attention layer through the flash-attention kernel, and a check of
 the prefill path against the decode path on the card. It also checks that
@@ -49,6 +55,16 @@ K, N_K, D, H = 8, 4096, 47_236, 1000
 B, T, RHO_D, GAMMA = 4, 20, 1000, 0.5
 SEED, LAM = 7, 1e-3
 COCOA_ROUNDS = 10
+# The engine's other protocols at RCV1 width: one outer round of T rounds
+# for the group family, ENGINE_LOCKSTEP_ROUNDS for the CoCoA solvers; the
+# worker map of the mapped-kernel check (B = 4 of the K = 8 workers).
+ENGINE_LOCKSTEP_ROUNDS = 5
+WORKER_MAP = [5, 2, 7, 0]
+# Engine against loop on the card: the kernel splits d over C = 16 CTAs for
+# the loop's one-worker launches and over C = 16 (B = 4) or C = 8 (K = 8) for
+# the engine's, and the engine scores every snapshot by two batched products,
+# so the gaps agree to float32 rounding, not bit for bit.
+ENGINE_GAP_RTOL = 1e-4
 
 # The serve path: qwen3-14b at full width and depth, batch 4, a 2048-token
 # prompt, 16 generated tokens; the consistency check at the same width with
@@ -134,7 +150,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.api import problems
-    from repro_torch.core import acpd, baselines, filter as msg_filter, sdca
+    from repro_torch.api.session import EvalEvent, RoundEvent, Session
+    from repro_torch.core import acpd, baselines, engine, filter as msg_filter, objectives, sdca
     from repro_torch.core.simulate import ClusterModel
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_token_dataset
@@ -274,6 +291,60 @@ def main() -> int:
     check(plan["cluster"] > 1, "sdca_inner runs one cluster of several CTAs per worker")
     check(all(r["spill_bytes"] == 0 for r in sdca_ptxas.values()), "sdca_inner spills nothing")
 
+    # -- kernel 1b: sdca_inner with a worker map (B = 4 of K = 8) -------------
+    # The engine's group relaunch: 4 clusters on workers 5, 2, 7, 0's rows of
+    # the full X. Against the plain version on the same map, bit for bit
+    # against an unmapped launch on the gathered copy X[workers], and bit
+    # for bit on repeat.
+    Bw = len(WORKER_MAP)
+    g = torch.tensor(WORKER_MAP, device=dev)
+    gathered = (problem.X[g].contiguous(), problem.y[g].contiguous(), norms[g].contiguous())
+    plan_w = sdca_mod.plan(Bw, N_K, D)
+    w_map = w_eff[:Bw].contiguous()
+    idx_w = idx[:Bw].contiguous()
+    map_rows = {}
+    for loss in SDCA_LOSSES:
+        a_full = alpha if loss == "ridge" else alpha_cls
+        args = (w_map, a_full, problem.X, problem.y, norms, LAM, n, sp, idx_w)
+        da_k, v_k = ops.sdca_epoch(*args, loss=loss, workers=WORKER_MAP)
+        da_r, v_r = ref.sdca_inner_ref(*args, loss=loss, workers=WORKER_MAP)
+        da_g, v_g = ops.sdca_epoch(w_map, a_full[g].contiguous(), gathered[0], gathered[1],
+                                   gathered[2], LAM, n, sp, idx_w, loss=loss)
+        da_2, v_2 = ops.sdca_epoch(*args, loss=loss, workers=WORKER_MAP)
+        torch.cuda.synchronize()
+        da_abs, da_rel = errors(da_k, da_r)
+        v_abs, v_rel = errors(v_k, v_r)
+        ok = (torch.allclose(da_k, da_r, rtol=1e-4, atol=1e-5)
+              and torch.allclose(v_k, v_r, rtol=1e-4, atol=1e-5))
+        gathered_equal = bool(torch.equal(da_k, da_g) and torch.equal(v_k, v_g))
+        bitwise = bool(torch.equal(da_k, da_2) and torch.equal(v_k, v_2))
+        ms = time_ms(lambda: ops.sdca_epoch(*args, loss=loss, workers=WORKER_MAP), warmup=2,
+                     reps=10)
+        map_rows[loss] = dict(ms=ms, max_abs_err=max(da_abs, v_abs),
+                              max_rel_err=max(da_rel, v_rel), within=ok,
+                              equals_gathered=gathered_equal, repeat_bitwise=bitwise)
+        check(ok, f"mapped sdca_inner ({loss}) within rtol 1e-4 / atol 1e-5 of its plain "
+                  f"version")
+        check(gathered_equal, f"mapped sdca_inner ({loss}) equals the unmapped launch on "
+                              f"X[workers] bit for bit")
+        check(bitwise, f"mapped sdca_inner ({loss}) repeats bit for bit")
+        del da_k, v_k, da_r, v_r, da_g, v_g, da_2, v_2
+    rows_w = sum(int(torch.unique(idx_w[b]).numel()) for b in range(Bw))
+    nbytes_w = rows_w * D * 4 + Bw * D * 4 * 2 + Bw * N_K * 4 * 4 + Bw * H * 4
+    flops_w = 6 * D * H * Bw
+    bound_w = max(nbytes_w / PEAK_BYTES, flops_w / PEAK_F32) * 1e3
+    emit("kernel_sdca_inner_workers", workers=WORKER_MAP, shape=dict(B=Bw, K=K, n_k=N_K, d=D,
+                                                                     H=H),
+         cluster=plan_w["cluster"], ctas=plan_w["ctas"], stages=plan_w["stages"],
+         bound_ms=bound_w, by_loss=map_rows)
+    kernels["sdca_inner"].update(
+        ms_workers_map=map_rows["ridge"]["ms"], workers_map=WORKER_MAP,
+        cluster_workers_map=plan_w["cluster"], bound_ms_workers_map=bound_w,
+        max_abs_err=max(kernels["sdca_inner"]["max_abs_err"],
+                        *(r["max_abs_err"] for r in map_rows.values())))
+    del gathered, g, w_map, idx_w
+    torch.cuda.empty_cache()
+
     # -- kernel 2: topk_filter at d=47236, k=1000, float32 and bfloat16 ------
     worker_dw = sdca.solve_subproblem(
         torch.zeros(D, device=dev), torch.zeros(N_K, device=dev), problem.X[0],
@@ -356,6 +427,40 @@ def main() -> int:
     emit("small_parity", accounting_equal=acct, max_gap_rel_err=gap_err, w_allclose=w_close)
     check(acct and w_close and gap_err < 1e-4, "small run on the card agrees with the host")
 
+    # -- the engine on the small input: each protocol, card against host -----
+    small_methods = {
+        "group": baselines.acpd(4, 512, B=2, T=5, rho_d=32, H=64),
+        "sync": baselines.cocoa_plus(4, H=64),
+        "async": baselines.acpd_async(4, 512, T=5, rho_d=32, H=64),
+        "lag": baselines.acpd_lag(4, 512, B=2, T=5, rho_d=32, H=64, lag_window=3),
+        "cocoa_importance": baselines.cocoa_v1(4, H=64, local_solver="importance"),
+        "cocoa_plus_accelerated": baselines.cocoa_plus_solver(4, H=64,
+                                                              local_solver="accelerated"),
+        "adaptive_b": baselines.acpd_adaptive(4, 512, T=5, rho_d=32, H=64),
+        "hierarchical_b": baselines.acpd_hierarchical(4, 512, T=5, rho_d=32, H=64),
+        "partial_work": baselines.acpd_partial_work(4, 512, B=2, T=5, rho_d=32, H=64,
+                                                    n_chunks=4),
+    }
+    parity = {}
+    for name, m in small_methods.items():
+        runs = {}
+        for where in ("cpu", "cuda"):
+            p = problems.rcv1_like(K=4, d=512, n_per_worker=64, device=where)
+            runs[where] = acpd.run_method(p, m, ClusterModel(4, straggler_sigma=4.0),
+                                          num_outer=2, seed=3, device=where,
+                                          draws=sdca.TorchDraws(3, "cpu"))
+        h, c = runs["cpu"], runs["cuda"]
+        acct = len(h.records) == len(c.records) and all(
+            (x.bytes_up, x.bytes_down, x.sim_time, x.compute_time, x.comm_time)
+            == (y.bytes_up, y.bytes_down, y.sim_time, y.compute_time, y.comm_time)
+            for x, y in zip(h.records, c.records))
+        gap_err = max(abs(x.gap - y.gap) / abs(x.gap) for x, y in zip(h.records, c.records))
+        w_close = bool(np.allclose(c.w, h.w, rtol=1e-4, atol=1e-6))
+        parity[name] = dict(accounting_equal=acct, max_gap_rel_err=gap_err, w_allclose=w_close)
+        check(acct and w_close and gap_err < 1e-4,
+              f"engine {name} on the card agrees with the host")
+    emit("engine_small_parity", rtol=1e-4, by_protocol=parity)
+
     launches: dict[str, dict[str, int]] = {}
     cluster = ClusterModel(K, straggler_sigma=10.0)
 
@@ -367,7 +472,7 @@ def main() -> int:
     res = acpd.run_method_reference(problem, method, cluster, num_outer=1, seed=SEED,
                                     eval_every=1, device=dev)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = acpd_wall = time.perf_counter() - t0
     launches["acpd"] = dict(ops.LAUNCHES)
     gaps = [r.gap for r in res.records]
     emit("acpd", method=method.name, B=B, T=T, rho=method.rho, gamma=GAMMA, H=H,
@@ -388,7 +493,7 @@ def main() -> int:
     res_c = acpd.run_method_reference(problem, baselines.cocoa_plus(K, H=H), cluster,
                                       num_outer=COCOA_ROUNDS, seed=SEED, device=dev)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = cocoa_wall = time.perf_counter() - t0
     launches["cocoa_plus"] = dict(ops.LAUNCHES)
     gaps_c = [r.gap for r in res_c.records]
     emit("cocoa_plus", rounds=len(gaps_c), gap_first=gaps_c[0], gap_last=gaps_c[-1],
@@ -444,6 +549,127 @@ def main() -> int:
     check(launches["table1_filter"]["topk_filter"] == K, "filter launched once per worker")
     check(launches["table1_filter"]["sdca_inner"] == 1, "one all-worker SDCA launch")
     check(conserved and kept == want_kept, "filtered updates keep min(k, #above floor), conserve dw")
+
+    # -- main path 5: the protocol engine (run_method -> Session -> engine) --
+    # ACPD as above through the engine, on the loop's visit-order stream: one
+    # launch for the K first rounds, one per group of B arrivals (19), one
+    # for the K workers of the sync round, against the loop's 92.
+    def drive(session):
+        """Drain a Session; returns its result, the host wall and the CUDA-event
+        ms from the last round to the first deferred certificate."""
+        n_rounds = session.proto.num_rounds(session.num_outer)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0, timed = time.perf_counter(), False
+        for ev in session.events():
+            if isinstance(ev, RoundEvent) and ev.iteration == n_rounds:
+                torch.cuda.synchronize()
+                e0.record()
+            elif isinstance(ev, EvalEvent) and not timed:
+                e1.record()
+                timed = True
+        torch.cuda.synchronize()
+        return session.result(), time.perf_counter() - t0, e0.elapsed_time(e1)
+
+    def gap_rel(a, b) -> float:
+        return max(abs(x.gap - y.gap) / abs(y.gap) for x, y in zip(a.records, b.records))
+
+    def same_accounting(a, b) -> bool:
+        fields = ("iteration", "bytes_up", "bytes_down", "sim_time")
+        return len(a.records) == len(b.records) and all(
+            [getattr(x, f) for f in fields] == [getattr(y, f) for f in fields]
+            for x, y in zip(a.records, b.records))
+
+    drive(Session(problem, method, cluster, num_outer=1, seed=SEED, device=dev))  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res_e, wall, eval_ms = drive(Session(
+        problem, method, cluster, num_outer=1, seed=SEED, eval_every=1, device=dev,
+        draws=sdca.StreamDraws(acpd.torch_visit_orders(N_K, H, SEED, dev))))
+    launches["engine_acpd"] = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    gaps_e = [r.gap for r in res_e.records]
+    # The batched evaluation alone at S = 20 snapshots, against one
+    # certificate of the loops (gap_certificate) times 20.
+    snaps_w = torch.stack([torch.as_tensor(res_e.w, device=dev)] * T)
+    snaps_a = torch.stack([torch.as_tensor(res_e.alpha_applied, device=dev)] * T)
+    eval_batched_ms = time_ms(lambda: engine._eval_batched(snaps_w, snaps_a, problem),
+                              warmup=1, reps=5)
+    cert_ms = time_ms(lambda: objectives.gap_certificate(problem, snaps_a[0], w=snaps_w[0]),
+                      warmup=1, reps=3)
+    emit("engine_acpd", method=method.name, executor="event", eval_mode="batched",
+         rounds=len(gaps_e), gaps=gaps_e, gap_first=gaps_e[0], gap_last=gaps_e[-1],
+         bytes_up=res_e.records[-1].bytes_up, bytes_down=res_e.records[-1].bytes_down,
+         sim_time=res_e.records[-1].sim_time, wall_s=wall, loop_wall_s=acpd_wall,
+         peak_mem_gb=peak, launches=launches["engine_acpd"],
+         loop_launches=launches["acpd"]["sdca_inner"], deferred_eval_ms=eval_ms,
+         eval_batched_ms_20=eval_batched_ms, gap_certificate_ms=cert_ms,
+         accounting_equal_loop=same_accounting(res_e, res),
+         max_gap_rel_vs_loop=gap_rel(res_e, res), gap_rtol=ENGINE_GAP_RTOL)
+    want_e = 1 + (T - 1) + 1
+    check(launches["engine_acpd"]["sdca_inner"] == want_e,
+          f"engine ACPD launched sdca_inner {launches['engine_acpd']['sdca_inner']} times, "
+          f"want {want_e}")
+    check(same_accounting(res_e, res), "engine ACPD's bytes and clock equal the loop's")
+    check(gap_rel(res_e, res) < ENGINE_GAP_RTOL, "engine ACPD's gaps agree with the loop's")
+    check(all(math.isfinite(x) for x in gaps_e) and gaps_e[-1] < gaps_e[0],
+          "engine ACPD gaps are finite and fall")
+    del snaps_w, snaps_a
+
+    # -- main path 5b: CoCoA+ through the engine (one launch a round) --------
+    ops.reset_launch_counts()
+    res_ec, wall, eval_ms = drive(Session(
+        problem, baselines.cocoa_plus(K, H=H), cluster, num_outer=COCOA_ROUNDS, seed=SEED,
+        device=dev, draws=sdca.StreamDraws(acpd.torch_visit_orders(N_K, H, SEED, dev))))
+    launches["engine_cocoa_plus"] = dict(ops.LAUNCHES)
+    gaps_ec = [r.gap for r in res_ec.records]
+    emit("engine_cocoa_plus", rounds=len(gaps_ec), gaps=gaps_ec, wall_s=wall,
+         loop_wall_s=cocoa_wall, deferred_eval_ms=eval_ms,
+         launches=launches["engine_cocoa_plus"],
+         accounting_equal_loop=same_accounting(res_ec, res_c),
+         max_gap_rel_vs_loop=gap_rel(res_ec, res_c), gap_rtol=ENGINE_GAP_RTOL)
+    check(launches["engine_cocoa_plus"]["sdca_inner"] == COCOA_ROUNDS,
+          "engine CoCoA+ launched sdca_inner once a round")
+    check(same_accounting(res_ec, res_c), "engine CoCoA+'s bytes and clock equal the loop's")
+    check(gap_rel(res_ec, res_c) < ENGINE_GAP_RTOL, "engine CoCoA+'s gaps agree with the loop's")
+
+    # -- main path 5c: every other engine protocol and solver at RCV1 width --
+    # Launches by each rule: the group family one for the first K rounds and
+    # one per round (every round relaunches its arrivals); partial_work one
+    # per chunk of each of those waves; the lockstep solvers one a round,
+    # accelerated one per inner round (4).
+    others = {
+        "async": (baselines.acpd_async(K, D, T=T, rho_d=RHO_D, gamma=GAMMA, H=H), 1),
+        "lag": (baselines.acpd_lag(K, D, B=B, T=T, rho_d=RHO_D, gamma=GAMMA, H=H), 1),
+        "adaptive_b": (baselines.acpd_adaptive(K, D, T=T, rho_d=RHO_D, gamma=GAMMA, H=H), 1),
+        "hierarchical_b": (baselines.acpd_hierarchical(K, D, T=T, rho_d=RHO_D, gamma=GAMMA,
+                                                       H=H), 1),
+        "partial_work": (baselines.acpd_partial_work(K, D, B=B, T=T, rho_d=RHO_D, gamma=GAMMA,
+                                                     H=H, n_chunks=4), 4),
+        "cocoa_importance": (baselines.cocoa_v1(K, H=H, local_solver="importance"), 1),
+        "cocoa_accelerated": (baselines.cocoa_v1(K, H=H, local_solver="accelerated"), 4),
+    }
+    by_protocol = {}
+    for name, (m, per_wave) in others.items():
+        lockstep = m.protocol in ("cocoa", "cocoa_plus", "sync")
+        ops.reset_launch_counts()
+        r, wall, eval_ms = drive(Session(problem, m, cluster,
+                                         num_outer=ENGINE_LOCKSTEP_ROUNDS if lockstep else 1,
+                                         seed=SEED, device=dev))
+        launches[f"engine_{name}"] = dict(ops.LAUNCHES)
+        rounds = len(r.records)
+        want = per_wave * (rounds if lockstep else 1 + rounds)
+        gaps_p = [x.gap for x in r.records]
+        by_protocol[name] = dict(protocol=m.protocol, local_solver=m.local_solver,
+                                 rounds=rounds, launches=ops.LAUNCHES["sdca_inner"],
+                                 launches_want=want, gap_first=gaps_p[0], gap_last=gaps_p[-1],
+                                 bytes_up=r.records[-1].bytes_up,
+                                 sim_time=r.records[-1].sim_time, wall_s=wall,
+                                 deferred_eval_ms=eval_ms)
+        check(ops.LAUNCHES["sdca_inner"] == want,
+              f"engine {name} launched sdca_inner {ops.LAUNCHES['sdca_inner']} times, "
+              f"want {want}")
+        check(all(math.isfinite(x) for x in gaps_p), f"engine {name} gaps are finite")
+    emit("engine_protocols", shape=dict(K=K, n_k=N_K, d=D, H=H), by_protocol=by_protocol)
 
     # Free the ACPD problem (6.2 GB of X) before the model's 29.5 GB.
     del problem, norms, upd, filtered, w_srv, alpha_t, res, res_c, idx, w_eff, alpha

@@ -19,8 +19,10 @@ default source draws them from a ``torch.Generator`` seeded by ``seed``;
 tests pass a source that replays the JAX package's key chain, so that both
 packages walk the same coordinates.
 
-The protocol engine (``repro.core.engine``) is not ported yet, so this module
-has no ``run_method``; ``run_method_reference`` is the entry point.
+``run_method`` runs a method through the protocol engine
+(:mod:`repro_torch.core.engine`, every registry protocol, one kernel launch
+per worker group); ``run_method_reference`` keeps the loops, which define the
+``group`` and ``sync`` trajectories and carry ``exact_dual_feedback``.
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ import torch
 
 from repro_torch.core import filter as msg_filter
 from repro_torch.core import objectives
-from repro_torch.core.sdca import (draw_visit_order, solve_subproblem_all_indices,
-                                   solve_subproblem_indices)
+from repro_torch.core.sdca import (as_orders, draw_visit_order,
+                                   solve_subproblem_all_indices, solve_subproblem_indices)
 from repro_torch.core.simulate import ClusterModel
 from repro_torch.device import resolve_device
 
@@ -45,13 +47,13 @@ class MethodConfig:
     """One distributed primal-dual method, in the paper's parameterization.
 
     The fields are those of ``repro.core.acpd.MethodConfig``, so configs
-    carry over unchanged; the reference loops here read ``protocol``, ``B``,
+    carry over unchanged; the reference loops read ``protocol``, ``B``,
     ``T``, ``rho``, ``gamma``, ``H``, ``sigma_prime``, ``use_exact_k`` and
-    ``exact_dual_feedback``. The rest belong to the engine's protocols.
+    ``exact_dual_feedback``, the engine's protocols the rest as well.
     """
 
     name: str
-    protocol: str = "group"  # "group" or "sync" until the engine is ported
+    protocol: str = "group"  # an engine registry entry: "group", "sync", "lag", ...
     B: int = 2  # group size: server proceeds once B workers arrived
     T: int = 20  # full-sync period; bounds staleness tau <= T-1
     rho: float = 1.0  # fraction of coordinates sent (1.0 = dense)
@@ -76,20 +78,14 @@ class MethodConfig:
     rack_b: int = 1
 
     def resolved_sigma_prime(self, K: int) -> float:
-        """sigma' when unset: gamma*B for ``group``, gamma*K for ``sync``.
-
-        These are the JAX engine's ``default_sigma_prime`` for the two
-        protocols; the other protocols come with the engine.
-        """
+        """sigma' when unset: the protocol registry entry's
+        ``default_sigma_prime`` (gamma*B for the group family, gamma*K for
+        the adding CoCoA lineage, 1 for averaging CoCoA)."""
         if self.sigma_prime is not None:
             return self.sigma_prime
-        if self.protocol == "group":
-            return self.gamma * self.B
-        if self.protocol == "sync":
-            return self.gamma * K
-        raise ValueError(
-            f"protocol {self.protocol!r} has no sigma' default in the port "
-            f"yet; only 'group' and 'sync' run here (ROADMAP item A6)")
+        from repro_torch.core import engine  # late import: engine imports our types
+
+        return engine.get_protocol(self.protocol).default_sigma_prime(self, K)
 
 
 def acpd_config(K: int, *, B: int | None = None, T: int = 20, rho_d: int | None = None,
@@ -168,6 +164,39 @@ def torch_visit_orders(n_k: int, H: int, seed: int,
         yield draw_visit_order(n_k, H, generator)
 
 
+def run_method(
+    problem: objectives.Problem,
+    method: MethodConfig,
+    cluster: ClusterModel,
+    *,
+    num_outer: int,
+    seed: int = 0,
+    eval_every: int = 1,
+    eval_mode: str = "batched",
+    draws=None,
+    device: str | torch.device | None = None,
+) -> RunResult:
+    """Run a method through the protocol engine (:mod:`repro_torch.core.engine`).
+
+    The one exception is the ``exact_dual_feedback`` theory variant, whose
+    per-round host ``lstsq`` stays on :func:`run_method_reference` (which
+    then draws its own visit orders; ``draws`` and ``eval_mode`` are the
+    engine's). ``draws`` is the engine's source of device-side random draws
+    (``sdca.TorchDraws(seed)`` by default; ``sdca.StreamDraws`` walks a
+    visit-order stream as the reference loops do).
+    """
+    from repro_torch.core import engine  # late import: engine imports our types
+
+    # An unknown name fails here with the registry listing.
+    engine.get_protocol(method.protocol)
+    if method.exact_dual_feedback:
+        return run_method_reference(problem, method, cluster, num_outer=num_outer,
+                                    seed=seed, eval_every=eval_every, device=device)
+    return engine.run_method(problem, method, cluster, num_outer=num_outer, seed=seed,
+                             eval_every=eval_every, eval_mode=eval_mode, draws=draws,
+                             device=device)
+
+
 def run_method_reference(
     problem: objectives.Problem,
     method: MethodConfig,
@@ -201,14 +230,12 @@ def run_method_reference(
                           eval_every=eval_every, visit_orders=visit_orders)
     raise ValueError(
         f"the reference loops cover 'group' and 'sync', got "
-        f"{method.protocol!r}; the engine's protocols come with ROADMAP item A6")
+        f"{method.protocol!r}; the engine's registry protocols run through "
+        f"run_method or repro_torch.api.session.Session")
 
 
 def _next_order(visit_orders, device: torch.device) -> torch.Tensor:
-    order = next(visit_orders)
-    if not isinstance(order, torch.Tensor):  # a host array, maybe read-only
-        order = torch.from_numpy(np.array(order, dtype=np.int32))
-    return order.to(device=device, dtype=torch.int32)
+    return as_orders(next(visit_orders), device)
 
 
 # ---------------------------------------------------------------------------

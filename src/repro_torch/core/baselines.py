@@ -1,8 +1,8 @@
 """Named method presets: the paper's baselines and ablations (Table I, Fig. 3).
 
-A copy of ``repro.core.baselines``. The reference loops of this slice run the
-``group`` and ``sync`` presets; the others name protocols of the engine,
-which the port does not have yet (ROADMAP item A6).
+A copy of ``repro.core.baselines``. Every preset runs through
+``repro_torch.core.acpd.run_method`` (the protocol engine); the ``group`` and
+``sync`` presets also run on the reference loops.
 
 * CoCoA+  (Ma et al. 2015): synchronous, "adding" aggregation -> gamma=1, sigma'=K.
 * CoCoA   (Jaggi et al. 2014): synchronous, "averaging" -> gamma=1/K, sigma'=1.

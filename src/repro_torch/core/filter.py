@@ -38,27 +38,31 @@ def num_kept(d: int, rho: float) -> int:
 
 
 def _top_k(mag: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(values, indices) of the k largest, ties toward the lower index."""
-    values, idx = torch.sort(mag, descending=True, stable=True)
-    return values[:k], idx[:k]
+    """(values, indices) of the k largest along the last axis, ties toward
+    the lower index."""
+    values, idx = torch.sort(mag, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
 
 
 def topk_mask(dw: torch.Tensor, k: int) -> FilterResult:
-    """Paper-faithful threshold filter: M = |dw| >= c_k (ties pass)."""
+    """Paper-faithful threshold filter: M = |dw| >= c_k (ties pass).
+
+    ``dw`` is one message ``(d,)`` or a batch ``(..., d)``, filtered row by row.
+    """
     mag = torch.abs(dw)
-    c_k = _top_k(mag, k)[0][-1]
-    mask = mag >= c_k
+    c_k = _top_k(mag, k)[0][..., -1]
+    mask = mag >= c_k[..., None]
     sent = torch.where(mask, dw, torch.zeros_like(dw))
     return FilterResult(sent, dw - sent, mask, c_k)
 
 
 def topk_mask_exact(dw: torch.Tensor, k: int) -> FilterResult:
-    """Exactly-k filter (ties broken toward lower index)."""
+    """Exactly-k filter (ties broken toward lower index), row by row."""
     values, idx = _top_k(torch.abs(dw), k)
     mask = torch.zeros(dw.shape, dtype=torch.bool, device=dw.device)
-    mask[idx] = True
+    mask.scatter_(-1, idx, True)
     sent = torch.where(mask, dw, torch.zeros_like(dw))
-    return FilterResult(sent, dw - sent, mask, values[-1])
+    return FilterResult(sent, dw - sent, mask, values[..., -1])
 
 
 def compress(dw: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

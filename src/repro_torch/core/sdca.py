@@ -20,14 +20,18 @@ hand-written CUDA kernel for tensors on the card, the plain loop below
 (``sdca_epoch_plain``) for tensors on the CPU.
 
 Visit orders are explicit: ``*_indices`` functions take them, the others
-draw them from a ``torch.Generator``. The JAX package draws them from
-``jax.random``; the two streams differ, so tests hand both the same orders.
+draw them from a ``torch.Generator``, and the engine and the solver
+registry draw them through a draw source (:class:`TorchDraws` by default,
+:class:`StreamDraws` to walk the reference loops' stream). The JAX package
+draws them from ``jax.random``; the two streams differ, so tests hand both
+the same orders.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.objectives import _HINGE_SMOOTHING, LossName, lam_n_f32
@@ -63,35 +67,50 @@ def _coordinate_delta(loss: LossName, a: torch.Tensor, z: torch.Tensor,
 
 
 def sdca_epoch_plain(loss: LossName, w_eff, alpha, X, y, norms_sq, lam: float,
-                     n_global: int, sigma_prime: float, idx) -> LocalSolveResult:
-    """H sequential SDCA steps for a batch of K workers, in plain PyTorch.
+                     n_global: int, sigma_prime: float, idx,
+                     workers=None) -> LocalSolveResult:
+    """H sequential SDCA steps for a batch of workers, in plain PyTorch.
 
-    Shapes: ``w_eff (K, d)``, ``alpha, y, norms_sq (K, n_k)``, ``X (K, n_k,
-    d)``, ``idx (K, H)``; the JAX package's ``vmap`` is the batch dimension.
+    Shapes: ``X (K, n_k, d)``, ``alpha, y, norms_sq (K, n_k)``; ``w_eff (B,
+    d)`` and ``idx (B, H)``, one row per worker of the batch; the JAX
+    package's ``vmap`` is the batch dimension. Batch row b is worker
+    ``workers[b]`` (an int sequence or tensor), or worker b when ``workers``
+    is None (then B = K). A step whose index lies outside ``[0, n_k)`` is
+    skipped for its worker, as the CUDA kernel skips it: it changes neither
+    ``dalpha`` nor ``v``. Returns ``dalpha (B, n_k)`` and ``v (B, d)``.
     """
-    K = X.shape[0]
+    n_k = X.shape[1]
     lam_n = lam_n_f32(lam, n_global)
-    rows = torch.arange(K, device=X.device)
-    dalpha = torch.zeros_like(alpha)
+    B = idx.shape[0]
+    batch = torch.arange(B, device=X.device)
+    rows = batch if workers is None else torch.as_tensor(workers, device=X.device).long()
+    dalpha = torch.zeros((B, n_k), dtype=alpha.dtype, device=alpha.device)
     v = torch.zeros_like(w_eff)
     for h in range(idx.shape[1]):
-        i = idx[:, h].long()
-        x_i = X[rows, i]  # (K, d)
-        a_i = alpha[rows, i] + dalpha[rows, i]
+        step = idx[:, h].long()
+        inside = (step >= 0) & (step < n_k)
+        i = step.clamp(0, n_k - 1)
+        x_i = X[rows, i]  # (B, d)
+        a_i = alpha[rows, i] + dalpha[batch, i]
         z_i = (w_eff * x_i).sum(-1) + sigma_prime * (v * x_i).sum(-1)
         q_i = sigma_prime * norms_sq[rows, i] / lam_n
         delta = _coordinate_delta(loss, a_i, z_i, y[rows, i], q_i)
-        dalpha[rows, i] += delta
+        delta = torch.where(inside, delta, torch.zeros_like(delta))
+        dalpha[batch, i] += delta
         v = v + (delta / lam_n)[:, None] * x_i
     return LocalSolveResult(dalpha, v)
 
 
 def solve_subproblem_all_indices(w_all, alpha, X, y, norms_sq, lam: float,
                                  n_global: int, sigma_prime: float, idx, *,
-                                 loss: LossName) -> LocalSolveResult:
-    """All K workers at once with explicit visit orders ``idx (K, H)``."""
+                                 loss: LossName, workers=None) -> LocalSolveResult:
+    """A batch of workers at once with explicit visit orders ``idx (B, H)``.
+
+    ``workers`` maps batch row b to its worker (see :func:`sdca_epoch_plain`);
+    without it the batch is all K workers. On the card this is one launch.
+    """
     dalpha, v = ops.sdca_epoch(w_all, alpha, X, y, norms_sq, lam, n_global,
-                               sigma_prime, idx, loss=loss)
+                               sigma_prime, idx, loss=loss, workers=workers)
     return LocalSolveResult(dalpha, v)
 
 
@@ -114,6 +133,68 @@ def draw_visit_order(n_k: int, num_steps: int, generator: torch.Generator,
     """Uniform int32 coordinate indices in [0, n_k) on the generator's device."""
     return torch.randint(0, n_k, (*batch, num_steps), generator=generator,
                          device=generator.device, dtype=torch.int32)
+
+
+class TorchDraws:
+    """The default source of the engine's random draws: one seeded generator.
+
+    A draw source stands in for ``jax.random``'s key API wherever the JAX
+    package draws on the device: ``root()`` makes the run's key, ``split(key,
+    num)`` gives ``num`` sub-keys, and ``randint(keys, n, num)`` /
+    ``choice(keys, n, num, p)`` give one row of ``num`` int32 draws in
+    ``[0, n)`` for each key (``choice`` weighted by the rows of ``p``).
+    Results may be tensors or arrays. Tests supply a source whose keys are JAX
+    keys, replaying the JAX package's draws exactly; here the keys carry
+    nothing and every draw comes from one ``torch.Generator`` in call order,
+    so a run repeats for a given seed.
+    """
+
+    def __init__(self, seed: int, device: str | torch.device = "cpu"):
+        self.generator = torch.Generator(device=device)
+        self.generator.manual_seed(seed)
+
+    def root(self):
+        return None
+
+    def split(self, key, num: int) -> list:
+        return [None] * num
+
+    def randint(self, keys, n: int, num: int) -> torch.Tensor:
+        return draw_visit_order(n, num, self.generator, batch=(len(keys),))
+
+    def choice(self, keys, n: int, num: int, p: torch.Tensor) -> torch.Tensor:
+        p = p.to(self.generator.device)
+        return torch.multinomial(p, num, replacement=True,
+                                 generator=self.generator).to(torch.int32)
+
+
+class StreamDraws(TorchDraws):
+    """A draw source that hands out the orders of a visit-order stream.
+
+    Each key of a ``randint`` call takes the stream's next ``(H,)`` order, so
+    the engine walks exactly the orders that ``run_method_reference`` walks
+    when given the same stream (for ``group``, one per worker round in launch
+    order; for ``sync``, K a round, worker 0 first). A stream has no weighted
+    draws, so ``choice`` raises.
+    """
+
+    def __init__(self, visit_orders):
+        self.visit_orders = visit_orders
+
+    def randint(self, keys, n: int, num: int):
+        return torch.stack([torch.as_tensor(next(self.visit_orders)).to(torch.int32)
+                            for _ in keys])
+
+    def choice(self, keys, n: int, num: int, p):
+        raise ValueError("a visit-order stream holds uniform orders only; weighted "
+                         "draws need a source with choice() (TorchDraws)")
+
+
+def as_orders(draws, device: torch.device) -> torch.Tensor:
+    """A source's draws as a contiguous int32 tensor on ``device``."""
+    if not isinstance(draws, torch.Tensor):  # a host array, maybe read-only
+        draws = torch.from_numpy(np.array(draws, dtype=np.int32))
+    return draws.to(device=device, dtype=torch.int32).contiguous()
 
 
 def solve_subproblem(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,

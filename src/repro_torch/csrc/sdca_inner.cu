@@ -57,6 +57,13 @@
 // after it has read slot s % 4 and re-armed its mbarrier (bytes that arrive
 // early only run the transaction count below zero).
 //
+// Worker map: a launch of B clusters may take an int32 map workers[B];
+// cluster b then reads the rows of X, alpha, y and norms of worker
+// workers[b] (checked on the host to lie in [0, K)) and takes w_eff, idx,
+// dalpha and v at row b. Without the map (nullptr) cluster b is worker b.
+// A group of workers that all solve against their own fixed rows thus runs
+// in one launch without copying its rows of X.
+//
 // C interface, launched on the caller's stream; every entry returns a
 // cudaError_t (0 on success).
 
@@ -230,7 +237,8 @@ __global__ void __launch_bounds__(kBlock, 1)
 sdca_cluster_kernel(const float* __restrict__ w_eff, const float* __restrict__ alpha,
                     const float* __restrict__ X, const float* __restrict__ y,
                     const float* __restrict__ norms, const int32_t* __restrict__ idx,
-                    float* __restrict__ dalpha, float* __restrict__ v_out, int n_k,
+                    const int32_t* __restrict__ workers, float* __restrict__ dalpha,
+                    float* __restrict__ v_out, int n_k,
                     int d, int H, int chunk, int stages, float lam_n, float sigma_p) {
   extern __shared__ __align__(16) float smem[];
   // A step's partials (w.x, v.x, x'.x) from each vector warp of each CTA of
@@ -244,7 +252,8 @@ sdca_cluster_kernel(const float* __restrict__ w_eff, const float* __restrict__ a
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int k = blockIdx.x / C;
+  const int b = blockIdx.x / C;                 // the batch row: w_eff, idx, outputs
+  const int k = workers ? workers[b] : b;       // its worker: X, alpha, y, norms
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int lo = rank * chunk;
   const int len = max(0, min(chunk, d - lo));
@@ -263,7 +272,7 @@ sdca_cluster_kernel(const float* __restrict__ w_eff, const float* __restrict__ a
   const float* alpha_k = alpha + (size_t)k * n_k;
   const float* y_k = y + (size_t)k * n_k;
   const float* norms_k = norms + (size_t)k * n_k;
-  const int32_t* idx_k = idx + (size_t)k * H;
+  const int32_t* idx_k = idx + (size_t)b * H;
 
   // The producer warp fills the ring with the steps whose index lies in
   // [0, n_k), in order, then one kEnd item. Item t goes to slot t % stages:
@@ -343,7 +352,7 @@ sdca_cluster_kernel(const float* __restrict__ w_eff, const float* __restrict__ a
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int j = 4 * (tid + g * kThreads) + u;
-        w_r[4 * g + u] = j < len ? w_eff[(size_t)k * d + lo + j] : 0.f;
+        w_r[4 * g + u] = j < len ? w_eff[(size_t)b * d + lo + j] : 0.f;
         v_r[4 * g + u] = x1_r[4 * g + u] = x2_r[4 * g + u] = 0.f;
       }
     int slot = 0, s = 0;
@@ -469,11 +478,11 @@ sdca_cluster_kernel(const float* __restrict__ w_eff, const float* __restrict__ a
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int j = 4 * (tid + g * kThreads) + u;
-        if (j < len) v_out[(size_t)k * d + lo + j] = v_r[4 * g + u];
+        if (j < len) v_out[(size_t)b * d + lo + j] = v_r[4 * g + u];
       }
   }
   if (rank == 0)
-    for (int j = tid; j < n_k; j += kBlock) dalpha[(size_t)k * n_k + j] = da_s[j];
+    for (int j = tid; j < n_k; j += kBlock) dalpha[(size_t)b * n_k + j] = da_s[j];
 }
 
 // The serial floor: H round trips of the kernel's exchange, each depending
@@ -530,8 +539,8 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_probe_kernel(int H, float
 }
 
 using KernelFn = void (*)(const float*, const float*, const float*, const float*,
-                          const float*, const int32_t*, float*, float*, int, int, int,
-                          int, int, float, float);
+                          const float*, const int32_t*, const int32_t*, float*, float*, int,
+                          int, int, int, int, float, float);
 
 template <int L>
 KernelFn instance(int per_thread) {
@@ -675,10 +684,12 @@ int sdca_inner_max_d(int n_k) {
   return 0;
 }
 
+// One SDCA epoch for B batch rows (B clusters of C CTAs); workers is the
+// int32 map of batch rows to workers, or nullptr for batch row b = worker b.
 int sdca_inner_launch(const void* w_eff, const void* alpha, const void* X, const void* y,
-                      const void* norms, const void* idx, void* dalpha, void* v, int K,
-                      int n_k, int d, int H, float lam_n, float sigma_p, int loss, int C,
-                      int stages, int per_thread, void* stream) {
+                      const void* norms, const void* idx, const void* workers, void* dalpha,
+                      void* v, int B, int n_k, int d, int H, float lam_n, float sigma_p,
+                      int loss, int C, int stages, int per_thread, void* stream) {
   KernelFn fn = kernel_for(loss, per_thread);
   const int chunk = slice_floats(d, C);
   if (fn == nullptr || C < 1 || C > kMaxCluster || stages < kMinStages || stages > kMaxStages ||
@@ -688,11 +699,11 @@ int sdca_inner_launch(const void* w_eff, const void* alpha, const void* X, const
   cudaError_t err = set_attributes(fn, C, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = config(K, C, kBlock, smem, (cudaStream_t)stream, attr);
+  cudaLaunchConfig_t cfg = config(B, C, kBlock, smem, (cudaStream_t)stream, attr);
   err = cudaLaunchKernelEx(&cfg, fn, (const float*)w_eff, (const float*)alpha,
                            (const float*)X, (const float*)y, (const float*)norms,
-                           (const int32_t*)idx, (float*)dalpha, (float*)v, n_k, d, H, chunk,
-                           stages, lam_n, sigma_p);
+                           (const int32_t*)idx, (const int32_t*)workers, (float*)dalpha,
+                           (float*)v, n_k, d, H, chunk, stages, lam_n, sigma_p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

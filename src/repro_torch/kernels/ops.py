@@ -41,21 +41,25 @@ def topk_filter(dw: torch.Tensor, k: int):
 
 
 def sdca_epoch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
-               sigma_prime: float, idx, *, loss: str = "ridge"):
-    """All-workers SDCA epoch for ``loss``: ``(dalpha (K, n_k), v (K, d))``.
+               sigma_prime: float, idx, *, loss: str = "ridge", workers=None):
+    """SDCA epoch of a batch of workers for ``loss``: ``(dalpha, v)``.
 
-    ``idx (K, H)`` int32 is each worker's visit order. On the card this is
-    one launch of the CUDA kernel, one thread-block cluster per worker, for
+    ``X (K, n_k, d)``, ``alpha``, ``y``, ``norms_sq (K, n_k)`` hold every
+    worker; ``workers`` (B ints in ``[0, K)``, host data) names the worker of
+    each batch row, all K in order when it is None. ``w_eff (B, d)`` and the
+    int32 visit orders ``idx (B, H)`` are per batch row, and so are the
+    results, ``dalpha (B, n_k)`` and ``v (B, d)``. On the card this is one
+    launch of the CUDA kernel, one thread-block cluster per batch row, for
     each of the three losses; on the CPU it is ``ref.sdca_inner_ref``, the
     plain ``sdca_epoch_plain``.
     """
     if X.is_cuda:
         out = sdca_inner_cuda(w_eff, alpha, X, y, norms_sq, lam, n_global,
-                              sigma_prime, idx, loss=loss)
+                              sigma_prime, idx, loss=loss, workers=workers)
         LAUNCHES["sdca_inner"] += 1
         return out
     return ref.sdca_inner_ref(w_eff, alpha, X, y, norms_sq, lam, n_global,
-                              sigma_prime, idx, loss=loss)
+                              sigma_prime, idx, loss=loss, workers=workers)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: float | None = None):

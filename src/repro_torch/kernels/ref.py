@@ -31,13 +31,14 @@ def topk_filter_ref(dw: torch.Tensor, k: int):
 
 
 def sdca_inner_ref(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
-                   sigma_prime: float, idx, *, loss: str = "ridge"):
-    """SDCA epoch for K workers with explicit visit orders ``idx (K, H)``.
+                   sigma_prime: float, idx, *, loss: str = "ridge", workers=None):
+    """SDCA epoch for a batch of workers with explicit visit orders ``idx (B, H)``.
 
-    Returns ``(dalpha (K, n_k), v (K, d))``.
+    Batch row b is worker ``workers[b]`` (all K workers in order without a
+    map). Returns ``(dalpha (B, n_k), v (B, d))``.
     """
     dalpha, v = sdca.sdca_epoch_plain(loss, w_eff, alpha, X, y, norms_sq,
-                                      lam, n_global, sigma_prime, idx)
+                                      lam, n_global, sigma_prime, idx, workers)
     return dalpha, v
 
 

@@ -19,6 +19,12 @@ makes 98,304 up to ``n_k = 31,398`` and 49,152 up to 43,686 (RCV1's
 ``d = 47,236`` at ``n_k = 4,096`` lies inside; the one-block design of the
 first slice stopped near 58,000). Steps whose index lies outside
 ``[0, n_k)`` are skipped by the kernel.
+
+An optional worker map ``workers (B,)`` launches B clusters on any B of the
+K workers without copying their rows: cluster b reads the rows of ``X``,
+``alpha``, ``y`` and ``norms_sq`` of worker ``workers[b]``, takes
+``w_eff[b]`` and ``idx[b]`` and writes ``dalpha[b]`` and ``v[b]``. It is
+host data, checked to lie in ``[0, K)`` before it is copied to the card.
 """
 
 from __future__ import annotations
@@ -39,8 +45,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sdca_inner_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, i,
-                                          i, p]
+        lib.sdca_inner_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i,
+                                          i, i, i, p]
         lib.sdca_inner_launch.restype = i
         lib.sdca_inner_plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         lib.sdca_inner_plan.restype = i
@@ -79,7 +85,8 @@ def _plan_dict(K: int, n_k: int, d: int, cluster: int) -> dict[str, int]:
 
 
 def plan(K: int, n_k: int, d: int) -> dict[str, int]:
-    """How the kernel launches on the current device.
+    """How the kernel launches K clusters (a batch of K workers, mapped or
+    not) on the current device.
 
     ``cluster`` (C) is the largest of 16, 8, 4, 2, 1 whose slices hold at
     least 32 floats, fit the registers of one of the kernel's instances
@@ -94,14 +101,14 @@ def plan(K: int, n_k: int, d: int) -> dict[str, int]:
     return _plan_dict(K, n_k, d, 0)
 
 
-def _check_inputs(w_eff, alpha, X, y, norms_sq, idx, loss: str) -> None:
+def _check_inputs(w_eff, alpha, X, y, norms_sq, idx, loss: str, B: int) -> None:
     if loss not in LOSSES:
         raise ValueError(f"sdca_inner: unknown loss {loss!r}")
     K, n_k, d = X.shape
     H = idx.shape[1]
-    shapes = {"w_eff": (w_eff, (K, d)), "alpha": (alpha, (K, n_k)),
+    shapes = {"w_eff": (w_eff, (B, d)), "alpha": (alpha, (K, n_k)),
               "X": (X, (K, n_k, d)), "y": (y, (K, n_k)),
-              "norms_sq": (norms_sq, (K, n_k)), "idx": (idx, (K, H))}
+              "norms_sq": (norms_sq, (K, n_k)), "idx": (idx, (B, H))}
     for name, (t, shape) in shapes.items():
         want = torch.int32 if name == "idx" else torch.float32
         if not t.is_cuda or t.device != X.device:
@@ -114,44 +121,66 @@ def _check_inputs(w_eff, alpha, X, y, norms_sq, idx, loss: str) -> None:
                 f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
-def sdca_inner_cuda(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
-                    sigma_prime: float, idx, *,
-                    loss: str = "ridge") -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel by :func:`plan`; returns ``(dalpha (K, n_k), v (K, d))``.
+def _worker_map(workers, K: int, device) -> torch.Tensor:
+    """The map as an int32 tensor on ``device``, checked on the host first."""
+    if isinstance(workers, torch.Tensor) and workers.device.type != "cpu":
+        raise ValueError("sdca_inner: workers must be host data (a sequence or a CPU "
+                         "tensor), checked before it is copied to the card")
+    host = torch.as_tensor(workers, dtype=torch.int64).flatten()
+    if host.numel() == 0:
+        raise ValueError("sdca_inner: workers is empty")
+    if int(host.min()) < 0 or int(host.max()) >= K:
+        raise ValueError(f"sdca_inner: workers must lie in [0, {K}), got "
+                         f"{host.tolist()}")
+    return host.to(torch.int32).to(device)
 
-    The launch is asynchronous on the current stream.
+
+def sdca_inner_cuda(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
+                    sigma_prime: float, idx, *, loss: str = "ridge",
+                    workers=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel by :func:`plan`; returns ``(dalpha (B, n_k), v (B, d))``.
+
+    B is K without a worker map, ``len(workers)`` with one. The launch is
+    asynchronous on the current stream.
     """
-    _check_inputs(w_eff, alpha, X, y, norms_sq, idx, loss)
+    K, n_k, d = X.shape
+    wmap = None if workers is None else _worker_map(workers, K, X.device)
+    B = K if wmap is None else wmap.numel()
+    _check_inputs(w_eff, alpha, X, y, norms_sq, idx, loss, B)
     with torch.cuda.device(X.device):
         return _launch(w_eff, alpha, X, y, norms_sq, lam, n_global, sigma_prime, idx,
-                       loss, plan(*X.shape))
+                       loss, plan(B, n_k, d), wmap)
 
 
 def _launch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int, sigma_prime: float,
-            idx, loss: str, p: dict[str, int]) -> tuple[torch.Tensor, torch.Tensor]:
+            idx, loss: str, p: dict[str, int],
+            wmap: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch with the plan ``p``, on inputs :func:`sdca_inner_cuda` has checked.
 
-    :func:`sdca_inner_cuda` passes :func:`plan`'s; a measurement of another
-    cluster size passes ``_plan_dict(K, n_k, d, C)``.
+    :func:`sdca_inner_cuda` passes :func:`plan`'s and the checked worker map
+    (an int32 tensor on the card, or None); a measurement of another cluster
+    size passes ``_plan_dict(B, n_k, d, C)``.
     """
     K, n_k, d = X.shape
+    B = idx.shape[0]
     with torch.cuda.device(X.device):
         limit = max_d(n_k)
         if d > limit:
             raise ValueError(f"sdca_inner: d = {d} exceeds the kernel's limit of "
                              f"{limit} at n_k = {n_k} (a cluster's shared memory)")
         if p["cluster"] == 0:
-            raise ValueError(f"sdca_inner: no cluster takes K = {K}, n_k = {n_k}, "
+            raise ValueError(f"sdca_inner: no cluster takes B = {B}, n_k = {n_k}, "
                              f"d = {d}")
-        dalpha = torch.empty((K, n_k), dtype=torch.float32, device=X.device)
-        v = torch.empty((K, d), dtype=torch.float32, device=X.device)
+        dalpha = torch.empty((B, n_k), dtype=torch.float32, device=X.device)
+        v = torch.empty((B, d), dtype=torch.float32, device=X.device)
         stream = torch.cuda.current_stream(X.device).cuda_stream
         lib = _lib()
         code = lib.sdca_inner_launch(
             w_eff.data_ptr(), alpha.data_ptr(), X.data_ptr(), y.data_ptr(),
-            norms_sq.data_ptr(), idx.data_ptr(), dalpha.data_ptr(), v.data_ptr(),
-            K, n_k, d, idx.shape[1], lam_n_f32(lam, n_global), float(sigma_prime),
-            LOSSES[loss], p["cluster"], p["stages"], p["per_thread"], stream)
+            norms_sq.data_ptr(), idx.data_ptr(), None if wmap is None else wmap.data_ptr(),
+            dalpha.data_ptr(), v.data_ptr(), B, n_k, d, idx.shape[1],
+            lam_n_f32(lam, n_global), float(sigma_prime), LOSSES[loss], p["cluster"],
+            p["stages"], p["per_thread"], stream)
     _build.check(lib, NAME, code, "sdca_inner launch")
     return dalpha, v
 

@@ -129,9 +129,13 @@ def test_sigma_prime_defaults_and_unported_protocols(problems):
     for name in ("acpd_lag", "acpd_async", "acpd_partial_work", "acpd_hierarchical"):
         assert (dataclasses.asdict(tbase.ALL_PRESETS[name](K, D))
                 == dataclasses.asdict(jbase.ALL_PRESETS[name](K, D)))
-    with pytest.raises(ValueError, match="A6"):
-        tbase.acpd_lag(K, D).resolved_sigma_prime(K)
-    with pytest.raises(ValueError, match="A6"):
+    # Every registry protocol now has its default, the JAX package's; the
+    # reference loops still cover group and sync only and name the engine.
+    for name in ("acpd_lag", "acpd_async", "acpd_partial_work", "acpd_hierarchical",
+                 "acpd_adaptive", "cocoa_v1", "cocoa_plus_solver"):
+        assert (tbase.ALL_PRESETS[name](K, D).resolved_sigma_prime(K)
+                == jbase.ALL_PRESETS[name](K, D).resolved_sigma_prime(K)), name
+    with pytest.raises(ValueError, match="run_method"):
         tacpd.run_method_reference(tp, tbase.acpd_async(K, D), TCluster(K),
                                    num_outer=1, device="cpu")
     cfg = tacpd.acpd_config(8, rho_d=1000, d=47236)

@@ -89,14 +89,55 @@ def test_sdca_kernel_matches_plain_and_repeats_bitwise(cuda, K, n_k, d, H, idx_k
     before = ops.LAUNCHES["sdca_inner"]
     da_k, v_k = ops.sdca_epoch(*args, lam, n, sp, idx, loss=loss)
     assert ops.LAUNCHES["sdca_inner"] == before + 1
-    # The kernel skips steps outside [0, n_k); the plain loop is given the
-    # order without them (they lie in the same columns for every worker).
-    inside = ((idx >= 0) & (idx < n_k)).all(0)
-    da_r, v_r = sdca.sdca_epoch_plain(loss, *args, lam, n, sp, idx[:, inside])
+    # Both skip the steps outside [0, n_k), each for its own worker: the
+    # plain loop gets the very same order.
+    da_r, v_r = sdca.sdca_epoch_plain(loss, *args, lam, n, sp, idx)
     torch.testing.assert_close(da_k, da_r, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(v_k, v_r, rtol=1e-4, atol=1e-5)
     da_2, v_2 = ops.sdca_epoch(*args, lam, n, sp, idx, loss=loss)
     assert torch.equal(da_k, da_2) and torch.equal(v_k, v_2)  # no atomics
+
+
+@pytest.mark.parametrize("loss", ["ridge", "smoothed_hinge", "logistic"])
+@pytest.mark.parametrize("K,n_k,d,H,workers", [
+    (8, 64, 2048, 120, [5]), (8, 64, 2048, 120, [5, 2, 7]),
+    (8, 64, 2048, 120, [0, 1, 2, 3, 4, 5, 6, 7]), (8, 64, 2048, 120, [7, 3, 0, 6, 1, 2, 5, 4]),
+    (4, 32, 47_236, 60, [2, 2, 0]), (8, 32, 47_236, 40, [5, 2, 7, 0])])
+def test_sdca_kernel_worker_map(cuda, K, n_k, d, H, workers, loss):
+    # Cluster b reads worker workers[b]'s rows: equal to the plain version on
+    # the same map, bit for bit the unmapped launch on the gathered copy
+    # (the same plan, B clusters), and bit for bit itself on repeat. The
+    # identity map is bit for bit the unmapped launch.
+    args, idx_all = _sdca_inputs(K, n_k, d, H, cuda, loss, "repeats_and_outside")
+    w, alpha, X, y, norms = args
+    B = len(workers)
+    w_b, idx = w[:B].contiguous(), idx_all[:B].contiguous()
+    lam, n, sp = 1e-3, K * n_k, 2.0
+    before = ops.LAUNCHES["sdca_inner"]
+    da_m, v_m = ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx, loss=loss,
+                               workers=workers)
+    assert ops.LAUNCHES["sdca_inner"] == before + 1
+    assert da_m.shape == (B, n_k) and v_m.shape == (B, d)
+    da_r, v_r = sdca.sdca_epoch_plain(loss, w_b, alpha, X, y, norms, lam, n, sp, idx,
+                                      workers)
+    torch.testing.assert_close(da_m, da_r, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(v_m, v_r, rtol=1e-4, atol=1e-5)
+    g = torch.tensor(workers, device=cuda)
+    da_g, v_g = ops.sdca_epoch(w_b, alpha[g].contiguous(), X[g].contiguous(),
+                               y[g].contiguous(), norms[g].contiguous(), lam, n, sp, idx,
+                               loss=loss)
+    assert torch.equal(da_m, da_g) and torch.equal(v_m, v_g)
+    da_2, v_2 = ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx, loss=loss,
+                               workers=workers)
+    assert torch.equal(da_m, da_2) and torch.equal(v_m, v_2)
+    if workers == list(range(K)):
+        assert torch.equal(da_m, ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx,
+                                                loss=loss)[0])
+    with pytest.raises(ValueError, match="host data"):
+        ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx, loss=loss, workers=g)
+    with pytest.raises(ValueError, match=r"\[0, 8\)|\[0, 4\)"):
+        ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx, loss=loss,
+                       workers=[K] + workers[1:])
 
 
 @pytest.mark.parametrize("C", [8, 16])
@@ -243,6 +284,49 @@ def test_small_run_on_the_card_matches_the_host(cuda, preset):
     host, card = results["cpu"], results["cuda"]
     for h, c in zip(host.records, card.records):
         assert (h.bytes_up, h.bytes_down, h.sim_time) == (c.bytes_up, c.bytes_down, c.sim_time)
+        np.testing.assert_allclose(c.gap, h.gap, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(card.w, host.w, rtol=1e-4, atol=1e-6)
+
+
+ENGINE_CASES = {
+    "group": lambda K, d, H: baselines.acpd(K, d, B=2, T=5, rho_d=32, H=H),
+    "sync": lambda K, d, H: baselines.cocoa_plus(K, H=H),
+    "async": lambda K, d, H: baselines.acpd_async(K, d, T=5, rho_d=32, H=H),
+    "lag": lambda K, d, H: baselines.acpd_lag(K, d, B=2, T=5, rho_d=32, H=H, lag_window=3),
+    "cocoa_importance": lambda K, d, H: baselines.cocoa_v1(K, H=H, local_solver="importance"),
+    "cocoa_plus_accelerated": lambda K, d, H: baselines.cocoa_plus_solver(
+        K, H=H, local_solver="accelerated"),
+    "adaptive_b": lambda K, d, H: baselines.acpd_adaptive(K, d, T=5, rho_d=32, H=H),
+    "hierarchical_b": lambda K, d, H: baselines.acpd_hierarchical(K, d, T=5, rho_d=32, H=H),
+    "partial_work": lambda K, d, H: baselines.acpd_partial_work(K, d, B=2, T=5, rho_d=32,
+                                                                H=H, n_chunks=4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENGINE_CASES))
+def test_engine_run_on_the_card_matches_the_host(cuda, name):
+    # Every protocol through run_method on the card and on the host, with the
+    # same draws (a host generator): accounting equal, w and the gaps within
+    # rtol 1e-4 (the kernel's sums run in another order than the plain loop's).
+    K, d, H = 4, 512, 64
+    method = ENGINE_CASES[name](K, d, H)
+    results, launched = {}, 0
+    for dev in ("cpu", cuda):
+        problem = problems.rcv1_like(K=K, d=d, n_per_worker=64, device=dev)
+        before = ops.LAUNCHES["sdca_inner"]
+        results[str(dev)] = acpd.run_method(
+            problem, method, ClusterModel(K, straggler_sigma=4.0), num_outer=2, seed=3,
+            draws=sdca.TorchDraws(3, "cpu"), device=dev)
+        launched = ops.LAUNCHES["sdca_inner"] - before
+    rounds = 2 if method.protocol in ("sync", "cocoa", "cocoa_plus") else 2 * method.T
+    per_wave = {"partial_work": 4, "cocoa_plus": 4}.get(method.protocol, 1)
+    waves = rounds if method.protocol in ("sync", "cocoa", "cocoa_plus") else 1 + rounds
+    assert launched == per_wave * waves
+    host, card = results["cpu"], results["cuda"]
+    assert len(host.records) == len(card.records) == rounds
+    for h, c in zip(host.records, card.records):
+        assert (h.bytes_up, h.bytes_down, h.sim_time, h.compute_time, h.comm_time) == (
+            c.bytes_up, c.bytes_down, c.sim_time, c.compute_time, c.comm_time)
         np.testing.assert_allclose(c.gap, h.gap, rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(card.w, host.w, rtol=1e-4, atol=1e-6)
 

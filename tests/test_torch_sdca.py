@@ -167,3 +167,71 @@ def test_kernel_launcher_refuses_host_tensors():
     a = _inputs(1, 32, 128, 8)
     with pytest.raises(ValueError, match="must lie on"):
         sdca_inner_cuda(*_args(a, "torch"), 1e-3, 32, 1.0, torch.from_numpy(a["idx"]))
+
+
+@pytest.mark.parametrize("loss", ["ridge", "smoothed_hinge", "logistic"])
+def test_plain_loop_skips_steps_outside_the_rows(loss):
+    # Indices -1 and n_k (and beyond) in each worker's order, at different
+    # positions per worker: the plain loop skips them for that worker, as
+    # the CUDA kernel does, and equals each worker's loop along its order
+    # with those steps removed; the JAX solver along the same filtered order
+    # agrees to the file's tolerance.
+    K, n_k, d, H = 3, 32, 128, 60
+    a = _inputs(K, n_k, d, H, loss)
+    idx = a["idx"].copy()
+    idx[0, 3::7] = -1
+    idx[1, 5::11] = n_k
+    idx[2, ::2] = n_k + 4
+    idx[2, 1] = -n_k  # would wrap to row 0 if indexed directly
+    lam, n, sp = 1e-3, K * n_k, 2.0
+    args = _args(a, "torch")
+    da, v = tsdca.sdca_epoch_plain(loss, *args, lam, n, sp, torch.from_numpy(idx))
+    jargs = _args(a, "jax")
+    for k in range(K):
+        inside = idx[k][(idx[k] >= 0) & (idx[k] < n_k)]
+        assert 0 < inside.size < H
+        one = tsdca.sdca_epoch_plain(loss, *(x[k:k + 1] for x in args), lam, n, sp,
+                                     torch.from_numpy(inside[None]))
+        assert torch.equal(da[k], one.delta_alpha[0]) and torch.equal(v[k], one.v[0])
+        j = jsdca.solve_subproblem_indices(*(x[k] for x in jargs), lam, n, sp,
+                                           jnp.asarray(inside), loss=loss)
+        np.testing.assert_allclose(v[k].numpy(), np.asarray(j.v), rtol=RTOL, atol=ATOL)
+    # An order with no step inside changes nothing.
+    none = torch.full((K, 5), -1, dtype=torch.int32)
+    da0, v0 = tsdca.sdca_epoch_plain(loss, *args, lam, n, sp, none)
+    assert not da0.any() and not v0.any()
+
+
+@pytest.mark.parametrize("loss", ["ridge", "logistic"])
+@pytest.mark.parametrize("workers", [[2], [3, 0, 1], [0, 1, 2, 3], [1, 3, 0, 2]])
+def test_worker_map_equals_the_gathered_copy(loss, workers):
+    # Batch row b is worker workers[b]: the plain version gathers on the
+    # CPU, bit for bit the unmapped loop on X[workers], alpha[workers], ...
+    K, n_k, d, H = 4, 32, 128, 50
+    a = _inputs(K, n_k, d, H, loss)
+    w, alpha, X, y, norms = _args(a, "torch")
+    B = len(workers)
+    idx = torch.from_numpy(a["idx"][:B])
+    w_b = w[:B].clone()
+    lam, n, sp = 1e-3, K * n_k, 1.5
+    before = dict(ops.LAUNCHES)
+    da_m, v_m = ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx, loss=loss,
+                               workers=workers)
+    assert ops.LAUNCHES == before
+    g = torch.tensor(workers)
+    da_g, v_g = tref.sdca_inner_ref(w_b, alpha[g].contiguous(), X[g].contiguous(),
+                                    y[g].contiguous(), norms[g].contiguous(), lam, n, sp,
+                                    idx, loss=loss)
+    assert da_m.shape == (B, n_k) and v_m.shape == (B, d)
+    assert torch.equal(da_m, da_g) and torch.equal(v_m, v_g)
+    if workers == list(range(K)):  # the identity map is no map
+        da_u, v_u = ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx, loss=loss)
+        assert torch.equal(da_m, da_u) and torch.equal(v_m, v_u)
+
+
+def test_kernel_launcher_checks_the_worker_map_on_the_host():
+    a = _inputs(2, 32, 128, 8)
+    for bad in ([0, 2], [-1], []):
+        with pytest.raises(ValueError, match="workers"):
+            sdca_inner_cuda(*_args(a, "torch"), 1e-3, 64, 1.0, torch.from_numpy(a["idx"]),
+                            workers=bad)
