@@ -19,7 +19,14 @@ launch count its rule predicts; each protocol on a small problem on the
 card against the host; then batched greedy serving of qwen3-14b at full width and
 depth (40 layers, bfloat16, random weights from a seed), whose prefill runs
 every attention layer through the flash-attention kernel, and a check of
-the prefill path against the decode path on the card. It also checks that
+the prefill path against the decode path on the card. The whole-run
+executor's phases (one captured CUDA graph per run) hold the kernel's
+device worker map and per-row modes, each scan-capable protocol on the
+small problem against the card's event engine bit for bit, CoCoA+, LAG,
+partial_work and a gap-stopped CoCoA+ at RCV1 width (one capture for two
+runs, launches by rule, the replay under sync debug mode "error"), the
+``map`` and ``vmap`` sweeps, a killed and resumed checkpointed run, and
+``python -m repro_torch run`` on a written spec. It also checks that
 the bfloat16 flash kernel was compiled to tensor-core (HGMMA) and TMA
 instructions, and that one top-k filter call runs at most four kernels
 without a host sync. Launch counts are zeroed just before each path and
@@ -342,7 +349,68 @@ def main() -> int:
         cluster_workers_map=plan_w["cluster"], bound_ms_workers_map=bound_w,
         max_abs_err=max(kernels["sdca_inner"]["max_abs_err"],
                         *(r["max_abs_err"] for r in map_rows.values())))
-    del gathered, g, w_map, idx_w
+    # -- kernel 1c: the map modes of the whole-run executor and the sweeps --
+    # (a) The same 4-of-8 map as an int32 tensor on the card: used as it is,
+    # no host check or sync (the launch runs under sync debug mode "error"),
+    # equal to the host map's launch bit for bit; a bad entry (8) writes
+    # nothing and lands in the error word, which raises once it is read.
+    # (b) V = 2 variants x K = 8 rows over the one X, alpha and sigma' read
+    # per row, against two launches of the same cluster size bit for bit.
+    dmap = torch.tensor(WORKER_MAP, dtype=torch.int32, device=dev)
+    err = sdca_mod.map_error_word(dev)
+    args_h = (w_map, alpha, problem.X, problem.y, norms, LAM, n, sp, idx_w)
+    da_h, v_h = ops.sdca_epoch(*args_h, workers=WORKER_MAP)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        da_d, v_d = ops.sdca_epoch(*args_h, workers=dmap, map_error=err)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    device_equal = bool(torch.equal(da_d, da_h) and torch.equal(v_d, v_h))
+    sdca_mod.raise_map_error(err, K)  # no bad entry: does not raise
+    bad = torch.tensor([5, 2, 8, 0], dtype=torch.int32, device=dev)
+    err_bad = sdca_mod.map_error_word(dev)
+    ops.sdca_epoch(*args_h, workers=bad, map_error=err_bad)
+    try:
+        sdca_mod.raise_map_error(err_bad, K)
+        bad_raised = ""
+    except ValueError as e:
+        bad_raised = str(e)
+    V2 = 2
+    sp2 = GAMMA * K
+    alpha2 = torch.cat([alpha, 0.5 * alpha]).contiguous()
+    w2 = torch.cat([w_eff, 0.5 * w_eff]).contiguous()
+    idx2 = torch.cat([idx, idx.flip(1)]).contiguous()
+    sig2 = torch.tensor([sp] * K + [sp2] * K, dtype=torch.float32, device=dev)
+    wm2 = torch.arange(K, dtype=torch.int32, device=dev).repeat(V2)
+    err2 = sdca_mod.map_error_word(dev)
+    rows_args = (w2, alpha2, problem.X, problem.y, norms, LAM, n, 0.0, idx2)
+    da_v, v_v = ops.sdca_epoch(*rows_args, workers=wm2, map_error=err2, alpha_rows=True,
+                               sigma_rows=sig2)
+    plan_v = sdca_mod.plan(V2 * K, N_K, D)
+    same_c = sdca_mod._plan_dict(K, N_K, D, plan_v["cluster"])
+    parts = [sdca_mod._launch(w2[i * K:(i + 1) * K].contiguous(),
+                              alpha2[i * K:(i + 1) * K].contiguous(), problem.X, problem.y,
+                              norms, LAM, n, s_, idx2[i * K:(i + 1) * K].contiguous(),
+                              "ridge", same_c) for i, s_ in enumerate((sp, sp2))]
+    rows_equal = bool(torch.equal(da_v, torch.cat([p_[0] for p_ in parts]))
+                      and torch.equal(v_v, torch.cat([p_[1] for p_ in parts])))
+    sdca_mod.raise_map_error(err2, K)
+    ms_device = time_ms(lambda: ops.sdca_epoch(*args_h, workers=dmap, map_error=err),
+                        warmup=2, reps=10)
+    ms_host = time_ms(lambda: ops.sdca_epoch(*args_h, workers=WORKER_MAP), warmup=2, reps=10)
+    ms_rows = time_ms(lambda: ops.sdca_epoch(*rows_args, workers=wm2, map_error=err2,
+                                             alpha_rows=True, sigma_rows=sig2),
+                      warmup=2, reps=10)
+    emit("kernel_sdca_inner_device_map", workers=WORKER_MAP, equals_host_map=device_equal,
+         host_sync=False, bad_entry_raised=bad_raised, variants=V2, rows=V2 * K,
+         rows_cluster=plan_v["cluster"], rows_equal_two_launches=rows_equal,
+         ms_device_map=ms_device, ms_host_map=ms_host, ms_rows=ms_rows)
+    check(device_equal, "a device worker map equals the host map bit for bit")
+    check("entry 8" in bad_raised, "a bad device map entry raises once its word is read")
+    check(rows_equal, "per-row alpha and sigma' equal two launches bit for bit")
+    kernels["sdca_inner"].update(ms_device_map=ms_device, ms_rows_2x8=ms_rows)
+    del gathered, g, w_map, idx_w, alpha2, w2, idx2, da_v, v_v, parts, da_d, v_d, da_h, v_h
     torch.cuda.empty_cache()
 
     # -- kernel 2: topk_filter at d=47236, k=1000, float32 and bfloat16 ------
@@ -619,7 +687,8 @@ def main() -> int:
     ops.reset_launch_counts()
     res_ec, wall, eval_ms = drive(Session(
         problem, baselines.cocoa_plus(K, H=H), cluster, num_outer=COCOA_ROUNDS, seed=SEED,
-        device=dev, draws=sdca.StreamDraws(acpd.torch_visit_orders(N_K, H, SEED, dev))))
+        device=dev, executor="event",
+        draws=sdca.StreamDraws(acpd.torch_visit_orders(N_K, H, SEED, dev))))
     launches["engine_cocoa_plus"] = dict(ops.LAUNCHES)
     gaps_ec = [r.gap for r in res_ec.records]
     emit("engine_cocoa_plus", rounds=len(gaps_ec), gaps=gaps_ec, wall_s=wall,
@@ -654,7 +723,7 @@ def main() -> int:
         ops.reset_launch_counts()
         r, wall, eval_ms = drive(Session(problem, m, cluster,
                                          num_outer=ENGINE_LOCKSTEP_ROUNDS if lockstep else 1,
-                                         seed=SEED, device=dev))
+                                         seed=SEED, device=dev, executor="event"))
         launches[f"engine_{name}"] = dict(ops.LAUNCHES)
         rounds = len(r.records)
         want = per_wave * (rounds if lockstep else 1 + rounds)
@@ -671,7 +740,264 @@ def main() -> int:
         check(all(math.isfinite(x) for x in gaps_p), f"engine {name} gaps are finite")
     emit("engine_protocols", shape=dict(K=K, n_k=N_K, d=D, H=H), by_protocol=by_protocol)
 
-    # Free the ACPD problem (6.2 GB of X) before the model's 29.5 GB.
+    # -- the whole-run executor: one captured CUDA graph per run -------------
+    from repro_torch.api import sweep as sweep_lib
+    from repro_torch.core import executor
+
+    def records_equal(a, b) -> bool:
+        return len(a.records) == len(b.records) and all(
+            dataclasses.asdict(x) == dataclasses.asdict(y) for x, y in zip(a.records, b.records))
+
+    def accounting_equal(a, b) -> bool:
+        fields = ("iteration", "bytes_up", "bytes_down", "sim_time", "compute_time",
+                  "comm_time")
+        return len(a.records) == len(b.records) and all(
+            [getattr(x, f) for f in fields] == [getattr(y, f) for f in fields]
+            for x, y in zip(a.records, b.records))
+
+    def state_equal(a, b) -> bool:
+        return bool(np.array_equal(a.w, b.w) and np.array_equal(a.alpha, b.alpha)
+                    and (a.alpha_applied is None) == (b.alpha_applied is None)
+                    and (a.alpha_applied is None
+                         or np.array_equal(a.alpha_applied, b.alpha_applied)))
+
+    def profiled(fn):
+        """(wall s, device busy ms or None) of fn() under torch.profiler: the
+        kernels' summed device time; None when the trace shows no kernel."""
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ = time.perf_counter() - t0
+        busy = sum(e.device_time for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        return wall_, (busy if busy > 0 else None)
+
+    # Small problem: each scan-capable protocol, a vector-sampled delay and
+    # constant; on the card the executor equals the event engine bit for
+    # bit, and the host's executor within rtol 1e-4.
+    scan_small = {
+        "sync": baselines.cocoa_plus(4, H=64),
+        "cocoa_importance": baselines.cocoa_v1(4, H=64, local_solver="importance"),
+        "cocoa_plus_accelerated": baselines.cocoa_plus_solver(4, H=64,
+                                                              local_solver="accelerated"),
+        "lag": baselines.acpd_lag(4, 512, B=2, T=5, rho_d=32, H=64, lag_window=3),
+        "partial_work": baselines.acpd_partial_work(4, 512, B=2, T=5, rho_d=32, H=64,
+                                                    n_chunks=4),
+    }
+    small_p = {where: problems.rcv1_like(K=4, d=512, n_per_worker=64, device=where)
+               for where in ("cpu", "cuda")}
+    scan_parity = {}
+    for delay in ("constant", "pareto"):
+        cl4 = ClusterModel(4, straggler_sigma=4.0, delay_model=delay)
+        for name, m in scan_small.items():
+            runs = {}
+            for where, ex in (("cuda", "event"), ("cuda", "scan"), ("cpu", "scan")):
+                runs[(where, ex)] = Session(
+                    small_p[where], m, cl4, num_outer=2 if m.protocol in ("lag",
+                                                                           "partial_work")
+                    else 6, seed=3, executor=ex, device=where,
+                    draws=sdca.TorchDraws(3, "cpu")).run()
+            ce, cs, hs = runs[("cuda", "event")], runs[("cuda", "scan")], runs[("cpu", "scan")]
+            row = dict(records_equal_event=records_equal(cs, ce),
+                       state_equal_event=state_equal(cs, ce),
+                       accounting_equal_host=accounting_equal(cs, hs),
+                       max_gap_rel_host=gap_rel(cs, hs),
+                       w_allclose_host=bool(np.allclose(cs.w, hs.w, rtol=1e-4, atol=1e-6)))
+            scan_parity[f"{name}/{delay}"] = row
+            check(row["records_equal_event"] and row["state_equal_event"],
+                  f"scan {name} ({delay}) on the card equals the card's event run")
+            check(row["accounting_equal_host"] and row["w_allclose_host"]
+                  and row["max_gap_rel_host"] < 1e-4,
+                  f"scan {name} ({delay}) on the card agrees with the host's")
+    emit("scan_small_parity", rtol=1e-4, by_cell=scan_parity)
+    del small_p
+
+    # At RCV1 width: two runs each; the second replays the first's graph
+    # under sync debug mode "error". Launches by the event engine's rule.
+    def scan_phase(name, m, num_outer, want_launches, *, target_gap=None):
+        stat = {"lag": "lag", "partial_work": "partial"}.get(
+            m.protocol, "lockstep_gap" if target_gap is not None else "lockstep")
+        kw = dict(num_outer=num_outer, seed=SEED, device=dev, target_gap=target_gap)
+        Session(problem, m, cluster, executor="event", **kw).run()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        event = Session(problem, m, cluster, executor="event", **kw).run()
+        torch.cuda.synchronize()
+        event_wall = time.perf_counter() - t0
+        executor.clear_cache()  # the phase's first run captures
+        executor.reset_stats()
+        t0 = time.perf_counter()
+        first = Session(problem, m, cluster, executor="scan", **kw).run()
+        torch.cuda.synchronize()
+        first_wall = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        executor.REPLAY_SYNC_DEBUG = "error"
+        try:
+            t0 = time.perf_counter()
+            second = Session(problem, m, cluster, executor="scan", **kw).run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            executor.REPLAY_SYNC_DEBUG = 0
+        launches[f"scan_{name}"] = dict(ops.LAUNCHES)
+        n_launched = ops.LAUNCHES["sdca_inner"]
+        captures = executor.STATS[f"{stat}_traces"]
+        calls = executor.STATS[f"{stat}_calls"]
+        graph = executor.last_graph(stat)
+        event_wall_p, event_busy = profiled(lambda: Session(problem, m, cluster,
+                                                            executor="event", **kw).run())
+        scan_wall, busy = profiled(lambda: Session(problem, m, cluster, executor="scan",
+                                                   **kw).run())
+        row = dict(protocol=m.protocol, rounds=len(second.records), captures=captures,
+                   runs=calls, launches=n_launched,
+                   launches_want=want_launches, graph_launches=dict(graph.launches),
+                   capture_ms=graph.capture_ms, first_run_wall_s=first_wall,
+                   replay_wall_s=wall, event_wall_s=event_wall,
+                   scan_wall_profiled_s=scan_wall, device_busy_ms=busy,
+                   device_idle_share=(None if busy is None
+                                      else 1.0 - busy / (scan_wall * 1e3)),
+                   event_wall_profiled_s=event_wall_p,
+                   event_device_idle_share=(None if event_busy is None
+                                            else 1.0 - event_busy / (event_wall_p * 1e3)),
+                   accounting_equal_event=accounting_equal(second, event),
+                   records_equal_event=records_equal(second, event),
+                   state_equal_event=state_equal(second, event),
+                   repeat_equal=records_equal(first, second) and state_equal(first, second),
+                   gaps=[r.gap for r in second.records])
+        emit(f"scan_{name}", shape=dict(K=K, n_k=N_K, d=D, H=H), host_sync_in_replay=False,
+             **row)
+        check(captures == 1 and calls == 2, f"scan {name}: one capture for two runs "
+                                            f"({captures} captures, {calls} runs)")
+        check(n_launched == want_launches,
+              f"scan {name} launched sdca_inner {n_launched} times, want {want_launches}")
+        check(row["accounting_equal_event"], f"scan {name}'s accounting equals the event "
+                                             f"engine's")
+        check(row["repeat_equal"], f"scan {name} repeats bit for bit")
+        check(all(math.isfinite(x) for x in row["gaps"]), f"scan {name} gaps are finite")
+        return second, event, row
+
+    cocoa = baselines.cocoa_plus(K, H=H)
+    scan_c, _, _ = scan_phase("cocoa_plus", cocoa, COCOA_ROUNDS, COCOA_ROUNDS)
+    lag_m = baselines.acpd_lag(K, D, B=B, T=T, rho_d=RHO_D, gamma=GAMMA, H=H)
+    scan_phase("lag", lag_m, 1, 1 + T)
+    pw_m = baselines.acpd_partial_work(K, D, B=B, T=T, rho_d=RHO_D, gamma=GAMMA, H=H,
+                                       n_chunks=4)
+    scan_phase("partial_work", pw_m, 1, 4 * (1 + T))
+    # target_gap between the plain run's gaps of rounds 5 and 6; the graph
+    # runs all rounds (compute-and-mask) and its records stop where the
+    # event loop's do, at round 6.
+    target = 0.5 * (scan_c.records[4].gap + scan_c.records[5].gap)
+    g_scan, g_event, g_row = scan_phase("gap", cocoa, COCOA_ROUNDS, COCOA_ROUNDS,
+                                        target_gap=target)
+    check(g_row["records_equal_event"] and len(g_scan.records) == 6,
+          "the gap run stops at the event loop's round with its records")
+
+    # -- sweeps: 2 seeds x 2 gammas (lag: x 2 delay models) in one graph -----
+    def sweep_phase(name, m, num_outer, delays, launches_vmap):
+        grid = dict(num_outer=num_outer, seeds=(SEED, SEED + 1), gammas=(GAMMA, 1.0),
+                    delays=delays)
+        out = {}
+        for batch in ("map", "vmap"):
+            sweep_lib.run_sweep(problem, m, cluster, batch=batch, **grid)  # capture
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out[batch] = sweep_lib.run_sweep(problem, m, cluster, batch=batch, **grid)
+            torch.cuda.synchronize()
+            out[f"{batch}_wall_s"] = time.perf_counter() - t0
+            out[f"{batch}_launches"] = ops.LAUNCHES["sdca_inner"]
+            launches[f"sweep_{name}_{batch}"] = dict(ops.LAUNCHES)
+        solo_equal, rel = True, 0.0
+        solo_wall = 0.0
+        for a, b in zip(out["map"], out["vmap"]):
+            cl_v = dataclasses.replace(cluster, delay_model=a.delay, delay_params=())
+            t0 = time.perf_counter()
+            solo = Session(problem, a.result.method, cl_v, num_outer=num_outer, seed=a.seed,
+                           executor="scan", device=dev).run()
+            solo_wall += time.perf_counter() - t0
+            solo_equal &= records_equal(solo, a.result) and state_equal(solo, a.result)
+            rel = max(rel, gap_rel(b.result, a.result),
+                      float(np.max(np.abs(b.result.w - a.result.w))
+                            / np.max(np.abs(a.result.w))))
+        cells = len(out["map"])
+        row = dict(cells=cells, rounds=len(out["map"][0].rounds),
+                   map_wall_s=out["map_wall_s"], vmap_wall_s=out["vmap_wall_s"],
+                   solo_scan_wall_s=solo_wall, map_launches=out["map_launches"],
+                   vmap_launches=out["vmap_launches"], vmap_launches_want=launches_vmap,
+                   map_equals_solo=solo_equal, vmap_max_rel_vs_map=rel)
+        emit(f"sweep_{name}", shape=dict(K=K, n_k=N_K, d=D, H=H), **row)
+        check(solo_equal, f"sweep {name} map cells equal their solo scan runs bit for bit")
+        check(out["vmap_launches"] == launches_vmap,
+              f"sweep {name} vmap launched {out['vmap_launches']}, want {launches_vmap}")
+        check(rel < 1e-4, f"sweep {name} vmap within rtol 1e-4 of map ({rel})")
+
+    sweep_phase("cocoa_plus", cocoa, COCOA_ROUNDS, None, COCOA_ROUNDS)
+    sweep_phase("lag", lag_m, 1, ("constant", "shifted_exponential"), 1 + T)
+
+    # -- checkpoint: CoCoA+ in segments of 5, killed after one, resumed -----
+    import tempfile
+
+    class Killed(Exception):
+        pass
+
+    def kill_after_first(start):
+        if start > 0:
+            raise Killed(start)
+
+    with tempfile.TemporaryDirectory() as cdir:
+        ops.reset_launch_counts()
+        killed = False
+        try:
+            Session(problem, cocoa, cluster, num_outer=COCOA_ROUNDS, seed=SEED, device=dev,
+                    checkpoint_dir=cdir, checkpoint_every=5,
+                    _segment_hook=kill_after_first).run()
+        except Killed:
+            killed = True
+        resumed = Session(problem, cocoa, cluster, num_outer=COCOA_ROUNDS, seed=SEED,
+                          device=dev, checkpoint_dir=cdir, checkpoint_every=5).run()
+        launches["checkpoint"] = dict(ops.LAUNCHES)
+    unbroken = Session(problem, cocoa, cluster, num_outer=COCOA_ROUNDS, seed=SEED,
+                       executor="scan", device=dev).run()
+    ck_equal = records_equal(resumed, unbroken) and state_equal(resumed, unbroken)
+    emit("checkpoint", every=5, rounds=COCOA_ROUNDS, killed_after_first=killed,
+         resumed_equals_unbroken=ck_equal, launches=launches["checkpoint"])
+    check(killed and ck_equal, "the resumed checkpointed run equals the unbroken one")
+    check(launches["checkpoint"]["sdca_inner"] == COCOA_ROUNDS,
+          "the two halves launched sdca_inner once a round")
+
+    # -- cli: python -m repro_torch run on a written spec, on the card -------
+    from repro_torch.api import ExperimentSpec, MethodEntry, ProblemSpec
+
+    cli_spec = ExperimentSpec(
+        name="chip-cli", problem=ProblemSpec("rcv1_like", {"K": 4, "d": 2048}),
+        cluster=ClusterModel(4, straggler_sigma=4.0),
+        methods=(MethodEntry(baselines.cocoa_plus(4, H=256), 4),
+                 MethodEntry(baselines.acpd_lag(4, 2048, B=2, T=5, rho_d=64, H=256), 1)),
+        eval_every=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_path = pathlib.Path(tmp) / "spec.json"
+        cli_spec.save(spec_path)
+        env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch", "run", str(spec_path),
+                               "--out", str(pathlib.Path(tmp) / "out.json")],
+                              capture_output=True, text=True, timeout=300, env=env,
+                              cwd=ROOT)
+        cli_wall = time.perf_counter() - t0
+        prov = (json.loads((pathlib.Path(tmp) / "out.json").read_text())["provenance"]
+                if proc.returncode == 0 else None)
+    emit("cli", returncode=proc.returncode, wall_s=cli_wall, provenance=prov,
+         executors=[ln.split("executor=")[1].rstrip(") =") for ln in proc.stdout.splitlines()
+                    if "executor=" in ln],
+         stdout_tail=proc.stdout.splitlines()[-3:], stderr_tail=proc.stderr[-400:])
+    check(proc.returncode == 0 and prov is not None and prov["device"].startswith("cuda"),
+          "python -m repro_torch run ran the spec on the card")
+
+    # Free the ACPD problem (6.2 GB of X) and the captured graphs' memory
+    # before the model's 29.5 GB.
+    executor.clear_cache()
     del problem, norms, upd, filtered, w_srv, alpha_t, res, res_c, idx, w_eff, alpha
     torch.cuda.empty_cache()
 

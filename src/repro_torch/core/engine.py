@@ -42,8 +42,15 @@ exactly as in the JAX package, so the accounting is equal; device draws
 round, worker-major per chunk. A source that replays ``jax.random`` makes
 both packages walk the same coordinates.
 
-Not here yet: ``coalesce_supported`` and the hand-off to the scan executor
-wait for the executor and the serve layer (ROADMAP A4, A6).
+The round bodies that the whole-run executor (:mod:`repro_torch.core.executor`)
+runs too are defined once, below the evaluation: :func:`lockstep_round`,
+:func:`group_local_rounds`, :func:`lag_skip`, :func:`aggregate` (and
+:func:`aggregate_masked`), :func:`apply_snapshots`, :func:`reply` and
+:func:`lag_window_append`. The
+event engine calls them with index tensors built from its host queue, the
+executor with the device's arrival order; the same ops on the same values
+make the two backends equal bit for bit. ``Protocol.coalesce_supported`` is
+the batching rule the serve layer will ask (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -209,6 +216,118 @@ def _materialize_records(snaps: list[_Snapshot], problem: objectives.Problem,
 
 
 # ---------------------------------------------------------------------------
+# Round bodies shared with the whole-run executor.
+# ---------------------------------------------------------------------------
+
+
+def lockstep_round(w: torch.Tensor, alpha: torch.Tensor, gamma, solve):
+    """One lockstep round: all K local solves, then the aggregation.
+
+    ``solve(w_all (K, d), alpha) -> (dalpha, v)`` runs the round's local
+    solver on its orders; ``gamma`` is a float or a 0-dim float32 tensor
+    (the same products either way). Returns the new ``(w, alpha)``.
+    """
+    K, d = alpha.shape[0], w.shape[0]
+    dalpha, v = solve(w.expand(K, d).contiguous(), alpha)
+    return w + gamma * torch.sum(v, dim=0), alpha + gamma * dalpha
+
+
+def group_local_rounds(w_local, alpha, residual, widx, workers, idx,
+                       problem: objectives.Problem, norms_sq, n: int, sigma_p: float,
+                       gamma, comp, *, num_steps: int | None = None, map_error=None):
+    """Alg. 2 lines 4-9 for the workers ``widx`` (an int64 index) against
+    their fixed ``w_local`` rows, as one ``ops.sdca_epoch`` launch with the
+    worker map ``workers`` (host data, or int32 on the device with its
+    ``map_error`` word) on the visit orders ``idx (B, H)``. ``residual``
+    holds their rows ``(B, d)``; ``alpha`` is updated in place. Returns
+    ``(alpha_rows, dw, sent, new_residual)``."""
+    w_eff = w_local.index_select(0, widx) + gamma * residual
+    dalpha, v = ops.sdca_epoch(w_eff, alpha, problem.X, problem.y, norms_sq, problem.lam,
+                               n, sigma_p, idx, loss=problem.loss, workers=workers,
+                               map_error=map_error)
+    return group_local_finish(alpha, widx, residual, dalpha, v, gamma, comp)
+
+
+def group_local_finish(alpha, widx, residual, dalpha, v, gamma, comp):
+    """The rest of :func:`group_local_rounds` once the kernel has returned
+    ``(dalpha, v)`` for the workers ``widx`` (a sweep batches several runs'
+    launches into one and finishes each run here)."""
+    alpha_rows = alpha.index_select(0, widx) + gamma * dalpha  # Alg. 2 line 5
+    alpha.index_copy_(0, widx, alpha_rows)
+    dw = residual + v  # line 6
+    sent, new_residual = comp.compress(dw)
+    return alpha_rows, dw, sent, new_residual
+
+
+def lag_skip(ref_buf, ref_len, widx, xi, dw, sent, new_residual):
+    """LAG's lazy upload for the workers ``widx``: a message whose
+    ``||F(dw)||^2`` falls below ``xi`` times the mean of the worker's live
+    window entries is skipped (zero payload, the whole ``dw`` kept as
+    residual). Returns ``(sent, residual_rows, skip)``."""
+    W = ref_buf.shape[1]
+    lens = ref_len.index_select(0, widx)
+    live = torch.arange(W, device=ref_buf.device)[None, :] < lens[:, None]
+    total = torch.sum(torch.where(live, ref_buf.index_select(0, widx), 0.0), dim=1)
+    ref = xi * total / torch.clamp(lens, min=1)
+    skip = torch.sum(sent * sent, dim=1) < ref
+    sent = torch.where(skip[:, None], torch.zeros_like(sent), sent)
+    return sent, torch.where(skip[:, None], dw, new_residual), skip
+
+
+def aggregate(w_server, dw_tilde, payloads, gamma):
+    """Alg. 1 lines 8/10: gamma * (the payloads summed in arrival order)
+    into the global model and every catch-up buffer; returns both."""
+    total = torch.zeros_like(w_server)
+    for payload in payloads:
+        total = total + payload
+    return w_server + gamma * total, dw_tilde + gamma * total[None, :]
+
+
+def aggregate_masked(w_server, dw_tilde, payloads, take, gamma):
+    """:func:`aggregate` over the payloads whose ``take`` (a 0-dim bool
+    tensor each) is set, without a host sync: a skipped payload keeps the
+    running sum (``where``), so the sum is the one of the taken payloads in
+    order, bit for bit."""
+    total = torch.zeros_like(w_server)
+    for payload, t in zip(payloads, take):
+        total = torch.where(t, total + payload, total)
+    return w_server + gamma * total, dw_tilde + gamma * total[None, :]
+
+
+def apply_snapshots(alpha_applied, widx, snapshots, applied):
+    """The arrived messages' dual snapshots become server-visible, except
+    where ``applied`` is False (LAG heartbeats); returns a new tensor."""
+    rows = alpha_applied.index_select(0, widx)
+    return alpha_applied.index_copy(0, widx, torch.where(applied[:, None], snapshots, rows))
+
+
+def reply(w_local, dw_tilde, widx):
+    """Catch-up replies to the workers ``widx``, in place: ``w_local +=
+    dw_tilde`` and ``dw_tilde = 0`` on their rows. Returns the replies'
+    squared norms (LAG's window) and nonzero counts (their bytes)."""
+    replies = dw_tilde.index_select(0, widx)
+    reply_sq = torch.sum(replies * replies, dim=1)
+    nnz = torch.sum(replies != 0, dim=1)
+    w_local.index_copy_(0, widx, w_local.index_select(0, widx) + replies)
+    dw_tilde.index_fill_(0, widx, 0.0)
+    return reply_sq, nnz
+
+
+def lag_window_append(ref_buf, ref_len, widx, reply_sq) -> None:
+    """Slide the replies' energies into the workers' windows, in place
+    (append while filling, shift left and append once full)."""
+    W = ref_buf.shape[1]
+    rows = ref_buf.index_select(0, widx)
+    lens = ref_len.index_select(0, widx)
+    full = (lens >= W)[:, None]
+    rows = torch.where(full, torch.roll(rows, -1, dims=1), rows)
+    pos = torch.clamp(lens, max=W - 1).long()
+    rows.scatter_(1, pos[:, None], reply_sq[:, None])
+    ref_buf.index_copy_(0, widx, rows)
+    ref_len.index_copy_(0, widx, torch.clamp(lens + 1, max=W))
+
+
+# ---------------------------------------------------------------------------
 # Protocols.
 # ---------------------------------------------------------------------------
 
@@ -249,6 +368,20 @@ class Protocol:
     def default_sigma_prime(cls, method: MethodConfig, K: int) -> float:
         """sigma' when ``MethodConfig.sigma_prime`` is unset: gamma * B."""
         return method.gamma * method.B
+
+    @classmethod
+    def coalesce_supported(cls, method: MethodConfig,
+                           cluster: ClusterModel) -> tuple[bool, str]:
+        """May runs of this protocol join a coalesced sweep batch (the serve
+        layer's batching rule)? Returns ``(ok, reason)``.
+
+        The base rule is the whole-run executor's eligibility: a run the
+        executor can express is one sweep cell. Protocols whose executor path
+        is not the shared lockstep/lag cell (``partial_work``) refuse.
+        """
+        from repro_torch.core import executor  # late import: executor imports us
+
+        return executor.scan_supported(method, cluster)
 
     def __init__(self, problem: objectives.Problem, method: MethodConfig,
                  cluster: ClusterModel, *, seed: int, draws=None):
@@ -320,6 +453,13 @@ class GroupProtocol(Protocol):
         # The paper's rule: sigma' covers the B updates a round aggregates.
         return method.gamma * method.B
 
+    @classmethod
+    def coalesce_supported(cls, method: MethodConfig,
+                           cluster: ClusterModel) -> tuple[bool, str]:
+        # Group runs coalesce exactly when the executor can express them as
+        # shared sweep cells (the base rule, stated per family).
+        return super().coalesce_supported(method, cluster)
+
     def __init__(self, problem, method, cluster, *, seed, draws=None):
         super().__init__(problem, method, cluster, seed=seed, draws=draws)
         dt, dev = problem.X.dtype, self.device
@@ -358,16 +498,10 @@ class GroupProtocol(Protocol):
         ``w_local`` rows, as one ``ops.sdca_epoch`` launch with the worker
         map. ``residual`` holds their rows ``(B, d)``; ``self.alpha`` is
         updated in place. Returns (alpha_rows, dw, sent, new_residual)."""
-        p, gamma = self.problem, self.method.gamma
         idx = as_orders(self.draws.randint(keys, self.n_k, num_steps), self.device)
-        w_eff = self.w_local[widx] + gamma * residual
-        dalpha, v = ops.sdca_epoch(w_eff, self.alpha, p.X, p.y, self.norms_sq, p.lam,
-                                   self.n, sigma_p, idx, loss=p.loss, workers=workers)
-        alpha_rows = self.alpha[widx] + gamma * dalpha  # Alg. 2 line 5
-        self.alpha[widx] = alpha_rows
-        dw = residual + v  # line 6
-        sent, new_residual = self.comp.compress(dw)
-        return alpha_rows, dw, sent, new_residual
+        return group_local_rounds(self.w_local, self.alpha, residual, widx, workers, idx,
+                                  self.problem, self.norms_sq, self.n, sigma_p,
+                                  self.method.gamma, self.comp)
 
     def _round_payloads(self, workers: list[int]):
         """Run the group's local rounds; returns (alpha_rows, sents, skip
@@ -375,8 +509,9 @@ class GroupProtocol(Protocol):
         widx = self._index(workers)
         keys = [self._split() for _ in workers]
         alpha_rows, _, sents, new_res = self._local_rounds(
-            workers, widx, keys, self.method.H, self.sigma_p, self.residual[widx])
-        self.residual[widx] = new_res
+            workers, widx, keys, self.method.H, self.sigma_p,
+            self.residual.index_select(0, widx))
+        self.residual.index_copy_(0, widx, new_res)
         return alpha_rows, sents, None
 
     def _message_bytes(self, skipped: bool) -> int:
@@ -430,22 +565,16 @@ class GroupProtocol(Protocol):
         ``dw_tilde = 0`` on their rows; returns the replies' nnz on the host
         (None when replies are dense: their byte count is static)."""
         widx = self._index(reply_workers)
-        replies = self.dw_tilde[widx]
-        self._last_reply_sq = torch.sum(replies * replies, dim=1)  # LAG reads it
-        self.w_local[widx] = self.w_local[widx] + replies
-        self.dw_tilde[widx] = 0.0
+        # LAG reads the squared norms.
+        self._last_reply_sq, nnz = reply(self.w_local, self.dw_tilde, widx)
         if self.dense or not reply_workers:
             return None
-        return torch.sum(replies != 0, dim=1).tolist()  # the one sync of the round
+        return nnz.tolist()  # the one sync of the round
 
     def _aggregate(self, payloads) -> None:
-        """Alg. 1 lines 8/10: gamma * (sum of payloads, in arrival order) into
-        the global model and every catch-up buffer."""
-        total = torch.zeros_like(self.w_server)
-        for p in payloads:
-            total = total + p
-        self.w_server = self.w_server + self.method.gamma * total
-        self.dw_tilde += self.method.gamma * total[None, :]
+        """Alg. 1 lines 8/10 (:func:`aggregate`)."""
+        self.w_server, self.dw_tilde = aggregate(self.w_server, self.dw_tilde, payloads,
+                                                 self.method.gamma)
 
     def _apply_server(self, arrived):
         """Aggregation + replies; returns (server_time, reply nnz)."""
@@ -453,12 +582,10 @@ class GroupProtocol(Protocol):
         workers = [m.worker for m in arrived]
         self._aggregate(m.payload for m in arrived)
         # LAG heartbeats' dual snapshots must not become server-visible.
-        widx = self._index(workers)
         mask = torch.tensor([m.applied for m in arrived], device=self.device)
         snap = torch.stack([m.alpha_snapshot for m in arrived])
-        alpha_applied = self.alpha_applied.clone()
-        alpha_applied[widx] = torch.where(mask[:, None], snap, self.alpha_applied[widx])
-        self.alpha_applied = alpha_applied
+        self.alpha_applied = apply_snapshots(self.alpha_applied, self._index(workers), snap,
+                                             mask)
         return server_time, self._reply(workers)
 
     def _reply_billing(self, j, worker, nnz_host) -> tuple[int, float]:
@@ -542,16 +669,12 @@ class LagProtocol(GroupProtocol):
     def _round_payloads(self, workers):
         widx = self._index(workers)
         keys = [self._split() for _ in workers]
-        W = self._ref_buf.shape[1]
-        lens = self._ref_len[widx]
-        live = torch.arange(W, device=self.device)[None, :] < lens[:, None]
-        total = torch.sum(torch.where(live, self._ref_buf[widx], 0.0), dim=1)
-        ref = self.method.lag_xi * total / torch.clamp(lens, min=1)
         alpha_rows, dw, sents, new_res = self._local_rounds(
-            workers, widx, keys, self.method.H, self.sigma_p, self.residual[widx])
-        skip = torch.sum(sents * sents, dim=1) < ref
-        sents = torch.where(skip[:, None], torch.zeros_like(sents), sents)
-        self.residual[widx] = torch.where(skip[:, None], dw, new_res)
+            workers, widx, keys, self.method.H, self.sigma_p,
+            self.residual.index_select(0, widx))
+        sents, res_rows, skip = lag_skip(self._ref_buf, self._ref_len, widx,
+                                         self.method.lag_xi, dw, sents, new_res)
+        self.residual.index_copy_(0, widx, res_rows)
         return alpha_rows, sents, skip.tolist()  # one pull per group
 
     def _message_bytes(self, skipped):
@@ -560,16 +683,8 @@ class LagProtocol(GroupProtocol):
     def _window_append(self, workers) -> None:
         """Slide this round's reply energies into the arrived workers' windows
         (append while filling, shift left and append once full)."""
-        widx = self._index(workers)
-        W = self._ref_buf.shape[1]
-        rows = self._ref_buf[widx]
-        lens = self._ref_len[widx]
-        full = (lens >= W)[:, None]
-        rows = torch.where(full, torch.roll(rows, -1, dims=1), rows)
-        pos = torch.clamp(lens, max=W - 1).long()
-        rows[torch.arange(len(workers), device=self.device), pos] = self._last_reply_sq
-        self._ref_buf[widx] = rows
-        self._ref_len[widx] = torch.clamp(lens + 1, max=W)
+        lag_window_append(self._ref_buf, self._ref_len, self._index(workers),
+                          self._last_reply_sq)
 
     def process_round(self, round_index, arrived):
         server_time, nnz_host = self._apply_server(arrived)
@@ -591,6 +706,13 @@ class SyncProtocol(Protocol):
     def default_sigma_prime(cls, method: MethodConfig, K: int) -> float:
         # "Adding" aggregation over all K partitions (Ma et al. 2015).
         return method.gamma * K
+
+    @classmethod
+    def coalesce_supported(cls, method: MethodConfig,
+                           cluster: ClusterModel) -> tuple[bool, str]:
+        # Lockstep rounds are the sweep's native shape; the executor's rule
+        # decides the rest.
+        return super().coalesce_supported(method, cluster)
 
     def __init__(self, problem, method, cluster, *, seed, draws=None):
         super().__init__(problem, method, cluster, seed=seed, draws=draws)
@@ -623,12 +745,12 @@ class SyncProtocol(Protocol):
         """One lockstep round: all K subproblems, then the aggregation."""
         m, p = self.method, self.problem
         keys = self.draws.split(self._split(), self.K)
-        w_all = self.w.expand(self.K, self.d).contiguous()
-        dalpha, v = self.solver(w_all, self.alpha, p.X, p.y, self.norms_sq, p.lam,
-                                self.n, self.sigma_p, keys, self.draws, loss=p.loss,
-                                num_steps=m.H)
-        self.alpha = self.alpha + m.gamma * dalpha
-        self.w = self.w + m.gamma * torch.sum(v, dim=0)
+
+        def solve(w_all, alpha):
+            return self.solver(w_all, alpha, p.X, p.y, self.norms_sq, p.lam, self.n,
+                               self.sigma_p, keys, self.draws, loss=p.loss, num_steps=m.H)
+
+        self.w, self.alpha = lockstep_round(self.w, self.alpha, m.gamma, solve)
 
     def process_round(self, round_index, arrived):
         m = self.method
@@ -786,6 +908,13 @@ class PartialWorkProtocol(GroupProtocol):
         # of update mass in steady state; min(B, K) for the elastic rescaling.
         return method.gamma * min(method.B, K)
 
+    @classmethod
+    def coalesce_supported(cls, method: MethodConfig,
+                           cluster: ClusterModel) -> tuple[bool, str]:
+        return (False, "protocol 'partial_work' streams per-chunk arrivals "
+                       "(per-chunk state in the executor); its runs are not "
+                       "expressible as shared lockstep/lag sweep cells")
+
     def __init__(self, problem, method, cluster, *, seed, draws=None):
         if method.n_chunks < 1:
             raise ValueError(f"n_chunks must be >= 1, got {method.n_chunks}")
@@ -921,7 +1050,7 @@ class PartialWorkProtocol(GroupProtocol):
         # The JAX package's draw order: worker-major, one split per chunk.
         keys = [[self._split() for _ in range(C)] for _ in workers]
         sigma_p = self._live_sigma()
-        residual = self.residual[widx]
+        residual = self.residual.index_select(0, widx)
         alpha_rows, sents, resids = [], [], []
         for c, h in enumerate(self._chunk_steps):
             a_c, _, sent, residual = self._local_rounds(
@@ -929,7 +1058,7 @@ class PartialWorkProtocol(GroupProtocol):
             alpha_rows.append(a_c)
             sents.append(sent)
             resids.append(residual)
-        self.residual[widx] = residual
+        self.residual.index_copy_(0, widx, residual)
         out = []
         for j, (k, start) in enumerate(starts):
             if pre_account is not None:

@@ -198,6 +198,18 @@ def duality_gap(alpha: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
             - dual_objective(alpha, X, y, lam, loss=loss))
 
 
+def certificate_tensors(X: torch.Tensor, y: torch.Tensor, lam: float, loss: LossName,
+                        alpha: torch.Tensor, w: torch.Tensor):
+    """``(primal, dual, gap, primal_server, gap_server)`` as 0-dim tensors on
+    the device, with no host sync: the ops of :func:`gap_certificate`, which
+    the whole-run executor also runs inside a captured graph."""
+    w_alpha = primal_from_dual(alpha, X, lam)
+    p = primal_objective(w_alpha, X, y, lam, loss=loss)
+    dv = dual_objective(alpha, X, y, lam, loss=loss)
+    p_srv = primal_objective(w, X, y, lam, loss=loss)
+    return p, dv, p - dv, p_srv, p_srv - dv
+
+
 def gap_certificate(problem: Problem, alpha: torch.Tensor,
                     w: torch.Tensor | None = None) -> dict[str, float]:
     """All monitored quantities for logging/benchmarks, as host floats.
@@ -207,12 +219,11 @@ def gap_certificate(problem: Problem, alpha: torch.Tensor,
     the exact primal-dual relation is broken by the practical filter variant.
     """
     X, y, lam, loss = problem.X, problem.y, problem.lam, problem.loss
+    if w is not None:
+        p, dv, gap, p_srv, gap_srv = certificate_tensors(X, y, lam, loss, alpha, w)
+        return {"primal": float(p), "dual": float(dv), "gap": float(gap),
+                "primal_server": float(p_srv), "gap_server": float(gap_srv)}
     w_alpha = primal_from_dual(alpha, X, lam)
     p = primal_objective(w_alpha, X, y, lam, loss=loss)
     dv = dual_objective(alpha, X, y, lam, loss=loss)
-    out = {"primal": float(p), "dual": float(dv), "gap": float(p - dv)}
-    if w is not None:
-        p_srv = primal_objective(w, X, y, lam, loss=loss)
-        out["primal_server"] = float(p_srv)
-        out["gap_server"] = float(p_srv - dv)
-    return out
+    return {"primal": float(p), "dual": float(dv), "gap": float(p - dv)}

@@ -67,23 +67,32 @@ def _coordinate_delta(loss: LossName, a: torch.Tensor, z: torch.Tensor,
 
 
 def sdca_epoch_plain(loss: LossName, w_eff, alpha, X, y, norms_sq, lam: float,
-                     n_global: int, sigma_prime: float, idx,
-                     workers=None) -> LocalSolveResult:
+                     n_global: int, sigma_prime: float, idx, workers=None, *,
+                     alpha_rows: bool = False, sigma_rows=None) -> LocalSolveResult:
     """H sequential SDCA steps for a batch of workers, in plain PyTorch.
 
     Shapes: ``X (K, n_k, d)``, ``alpha, y, norms_sq (K, n_k)``; ``w_eff (B,
     d)`` and ``idx (B, H)``, one row per worker of the batch; the JAX
     package's ``vmap`` is the batch dimension. Batch row b is worker
-    ``workers[b]`` (an int sequence or tensor), or worker b when ``workers``
-    is None (then B = K). A step whose index lies outside ``[0, n_k)`` is
-    skipped for its worker, as the CUDA kernel skips it: it changes neither
-    ``dalpha`` nor ``v``. Returns ``dalpha (B, n_k)`` and ``v (B, d)``.
+    ``workers[b]`` (an int sequence or tensor, each entry in ``[0, K)`` or
+    ``ValueError``), or worker b when ``workers`` is None (then B = K).
+    ``alpha_rows`` reads ``alpha (B, n_k)`` at row b instead of at its
+    worker; ``sigma_rows (B,)`` replaces ``sigma_prime`` row by row. A step
+    whose index lies outside ``[0, n_k)`` is skipped for its worker, as the
+    CUDA kernel skips it: it changes neither ``dalpha`` nor ``v``. Returns
+    ``dalpha (B, n_k)`` and ``v (B, d)``.
     """
-    n_k = X.shape[1]
+    K, n_k = X.shape[0], X.shape[1]
     lam_n = lam_n_f32(lam, n_global)
     B = idx.shape[0]
     batch = torch.arange(B, device=X.device)
     rows = batch if workers is None else torch.as_tensor(workers, device=X.device).long()
+    if workers is not None and rows.numel() and (int(rows.min()) < 0 or int(rows.max()) >= K):
+        bad = int(torch.nonzero((rows < 0) | (rows >= K))[0, 0])
+        raise ValueError(f"sdca_inner: worker map entry {int(rows[bad])} of batch row "
+                         f"{bad} lies outside [0, {K})")
+    arows = batch if alpha_rows else rows
+    sigma = sigma_prime if sigma_rows is None else sigma_rows
     dalpha = torch.zeros((B, n_k), dtype=alpha.dtype, device=alpha.device)
     v = torch.zeros_like(w_eff)
     for h in range(idx.shape[1]):
@@ -91,9 +100,9 @@ def sdca_epoch_plain(loss: LossName, w_eff, alpha, X, y, norms_sq, lam: float,
         inside = (step >= 0) & (step < n_k)
         i = step.clamp(0, n_k - 1)
         x_i = X[rows, i]  # (B, d)
-        a_i = alpha[rows, i] + dalpha[batch, i]
-        z_i = (w_eff * x_i).sum(-1) + sigma_prime * (v * x_i).sum(-1)
-        q_i = sigma_prime * norms_sq[rows, i] / lam_n
+        a_i = alpha[arows, i] + dalpha[batch, i]
+        z_i = (w_eff * x_i).sum(-1) + sigma * (v * x_i).sum(-1)
+        q_i = sigma * norms_sq[rows, i] / lam_n
         delta = _coordinate_delta(loss, a_i, z_i, y[rows, i], q_i)
         delta = torch.where(inside, delta, torch.zeros_like(delta))
         dalpha[batch, i] += delta
@@ -103,14 +112,18 @@ def sdca_epoch_plain(loss: LossName, w_eff, alpha, X, y, norms_sq, lam: float,
 
 def solve_subproblem_all_indices(w_all, alpha, X, y, norms_sq, lam: float,
                                  n_global: int, sigma_prime: float, idx, *,
-                                 loss: LossName, workers=None) -> LocalSolveResult:
+                                 loss: LossName, workers=None,
+                                 **row_options) -> LocalSolveResult:
     """A batch of workers at once with explicit visit orders ``idx (B, H)``.
 
     ``workers`` maps batch row b to its worker (see :func:`sdca_epoch_plain`);
-    without it the batch is all K workers. On the card this is one launch.
+    without it the batch is all K workers. ``row_options`` are the kernel's
+    ``map_error``, ``alpha_rows`` and ``sigma_rows`` (``ops.sdca_epoch``).
+    On the card this is one launch.
     """
     dalpha, v = ops.sdca_epoch(w_all, alpha, X, y, norms_sq, lam, n_global,
-                               sigma_prime, idx, loss=loss, workers=workers)
+                               sigma_prime, idx, loss=loss, workers=workers,
+                               **row_options)
     return LocalSolveResult(dalpha, v)
 
 
@@ -167,6 +180,16 @@ class TorchDraws:
         return torch.multinomial(p, num, replacement=True,
                                  generator=self.generator).to(torch.int32)
 
+    def save(self, key) -> np.ndarray:
+        """The source's position as an array (a checkpoint's ``key``)."""
+        return self.generator.get_state().numpy().copy()
+
+    def restore(self, state) -> None:
+        """Resume at a position :meth:`save` returned; the next key is
+        ``root()``'s."""
+        self.generator.set_state(torch.as_tensor(np.asarray(state, dtype=np.uint8)))
+        return self.root()
+
 
 class StreamDraws(TorchDraws):
     """A draw source that hands out the orders of a visit-order stream.
@@ -188,6 +211,12 @@ class StreamDraws(TorchDraws):
     def choice(self, keys, n: int, num: int, p):
         raise ValueError("a visit-order stream holds uniform orders only; weighted "
                          "draws need a source with choice() (TorchDraws)")
+
+    def save(self, key):
+        raise ValueError("a visit-order stream has no position to checkpoint; use "
+                         "TorchDraws")
+
+    restore = save
 
 
 def as_orders(draws, device: torch.device) -> torch.Tensor:

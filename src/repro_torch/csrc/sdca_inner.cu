@@ -59,10 +59,17 @@
 //
 // Worker map: a launch of B clusters may take an int32 map workers[B];
 // cluster b then reads the rows of X, alpha, y and norms of worker
-// workers[b] (checked on the host to lie in [0, K)) and takes w_eff, idx,
-// dalpha and v at row b. Without the map (nullptr) cluster b is worker b.
-// A group of workers that all solve against their own fixed rows thus runs
-// in one launch without copying its rows of X.
+// workers[b] and takes w_eff, idx, dalpha and v at row b. Without the map
+// (nullptr) cluster b is worker b. A group of workers that all solve
+// against their own fixed rows thus runs in one launch without copying its
+// rows of X. The map may be device data that the host never saw (a device
+// sort's arrival order): a cluster whose entry lies outside [0, K) writes
+// nothing and records itself in the error word map_error[2] = {1 + b, entry}
+// (the first such cluster wins), which the caller reads with its results.
+// Two more options let a launch run several independent problems over one
+// shared X (the variants of a sweep): alpha_rows reads alpha at batch row b
+// (alpha is then (B, n_k)), not at the worker, and sigma_rows, when given,
+// is sigma' for each batch row.
 //
 // C interface, launched on the caller's stream; every entry returns a
 // cudaError_t (0 on success).
@@ -237,9 +244,10 @@ __global__ void __launch_bounds__(kBlock, 1)
 sdca_cluster_kernel(const float* __restrict__ w_eff, const float* __restrict__ alpha,
                     const float* __restrict__ X, const float* __restrict__ y,
                     const float* __restrict__ norms, const int32_t* __restrict__ idx,
-                    const int32_t* __restrict__ workers, float* __restrict__ dalpha,
-                    float* __restrict__ v_out, int n_k,
-                    int d, int H, int chunk, int stages, float lam_n, float sigma_p) {
+                    const int32_t* __restrict__ workers, int K, int alpha_rows,
+                    const float* __restrict__ sigma_rows, int* __restrict__ map_error,
+                    float* __restrict__ dalpha, float* __restrict__ v_out, int n_k,
+                    int d, int H, int chunk, int stages, float lam_n, float sigma_arg) {
   extern __shared__ __align__(16) float smem[];
   // A step's partials (w.x, v.x, x'.x) from each vector warp of each CTA of
   // the cluster, at [rank * kWarps + warp].
@@ -253,8 +261,14 @@ sdca_cluster_kernel(const float* __restrict__ w_eff, const float* __restrict__ a
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.x / C;                 // the batch row: w_eff, idx, outputs
-  const int k = workers ? workers[b] : b;       // its worker: X, alpha, y, norms
+  const int k = workers ? workers[b] : b;       // its worker: X, y, norms (and alpha)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if ((unsigned)k >= (unsigned)K) {  // a bad map entry: the whole cluster leaves
+    if (map_error != nullptr && rank == 0 && tid == 0 && atomicCAS(map_error, 0, b + 1) == 0)
+      atomicExch(map_error + 1, k);
+    return;
+  }
+  const float sigma_p = sigma_rows ? sigma_rows[b] : sigma_arg;
   const int lo = rank * chunk;
   const int len = max(0, min(chunk, d - lo));
   // A slot holds the slice shifted by misalign() and room for every thread's
@@ -269,7 +283,7 @@ sdca_cluster_kernel(const float* __restrict__ w_eff, const float* __restrict__ a
   float* da_s = reinterpret_cast<float*>(scal + stages);                      // n_k
 
   const float* Xk = X + (size_t)k * n_k * d + lo;
-  const float* alpha_k = alpha + (size_t)k * n_k;
+  const float* alpha_k = alpha + (size_t)(alpha_rows ? b : k) * n_k;
   const float* y_k = y + (size_t)k * n_k;
   const float* norms_k = norms + (size_t)k * n_k;
   const int32_t* idx_k = idx + (size_t)b * H;
@@ -539,8 +553,9 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_probe_kernel(int H, float
 }
 
 using KernelFn = void (*)(const float*, const float*, const float*, const float*,
-                          const float*, const int32_t*, const int32_t*, float*, float*, int,
-                          int, int, int, int, float, float);
+                          const float*, const int32_t*, const int32_t*, int, int,
+                          const float*, int*, float*, float*, int, int, int, int, int, float,
+                          float);
 
 template <int L>
 KernelFn instance(int per_thread) {
@@ -598,7 +613,7 @@ cudaLaunchConfig_t config(int K, int C, int threads, size_t smem, cudaStream_t s
   return cfg;
 }
 
-cudaError_t set_attributes(KernelFn fn, int C, size_t smem) {
+cudaError_t set_attributes_now(KernelFn fn, int C, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err == cudaSuccess && C > 8)
@@ -606,9 +621,53 @@ cudaError_t set_attributes(KernelFn fn, int C, size_t smem) {
   return err;
 }
 
-// Clusters of C CTAs with smem bytes each that the device holds at once.
+// The attributes a launch needs, set once for each instance, device and
+// size: what set them is remembered, so a launch recorded into a CUDA graph
+// (after a first launch or sdca_inner_prepare) makes no cudaFuncSetAttribute
+// call while the stream is being captured.
+constexpr int kMaxDevices = 16;
+constexpr int kInstances = 6;  // 3 losses x 2 sizes
+KernelFn set_fn[kMaxDevices][kInstances];
+size_t set_smem[kMaxDevices][kInstances];
+bool set_nonportable[kMaxDevices][kInstances];
+
+cudaError_t set_attributes(KernelFn fn, int C, size_t smem) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxDevices) return set_attributes_now(fn, C, smem);
+  int slot = 0;
+  while (slot < kInstances && set_fn[dev][slot] != nullptr && set_fn[dev][slot] != fn) ++slot;
+  if (slot == kInstances) return set_attributes_now(fn, C, smem);
+  if (set_fn[dev][slot] == fn && set_smem[dev][slot] >= smem &&
+      (C <= 8 || set_nonportable[dev][slot]))
+    return cudaSuccess;
+  const size_t want = set_fn[dev][slot] == fn && set_smem[dev][slot] > smem
+                          ? set_smem[dev][slot] : smem;
+  cudaError_t err = set_attributes_now(fn, C, want);
+  if (err != cudaSuccess) return err;
+  set_fn[dev][slot] = fn;
+  set_smem[dev][slot] = want;
+  set_nonportable[dev][slot] = set_nonportable[dev][slot] || C > 8;
+  return cudaSuccess;
+}
+
+// Drops what set_attributes remembers of fn on the current device.
+void forget_attributes(KernelFn fn) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxDevices) return;
+  for (int slot = 0; slot < kInstances; ++slot)
+    if (set_fn[dev][slot] == fn) {
+      set_smem[dev][slot] = 0;
+      set_nonportable[dev][slot] = false;
+    }
+}
+
+// Clusters of C CTAs with smem bytes each that the device holds at once
+// (with the attributes set to exactly these sizes, as the query needs).
 cudaError_t active_clusters(KernelFn fn, int K, int C, size_t smem, int* out) {
-  cudaError_t err = set_attributes(fn, C, smem);
+  forget_attributes(fn);
+  cudaError_t err = set_attributes_now(fn, C, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = config(K, C, kBlock, smem, 0, attr);
@@ -684,10 +743,23 @@ int sdca_inner_max_d(int n_k) {
   return 0;
 }
 
-// One SDCA epoch for B batch rows (B clusters of C CTAs); workers is the
-// int32 map of batch rows to workers, or nullptr for batch row b = worker b.
+// Sets the attributes of the instance a launch of this plan uses, so that
+// later launches (inside a stream capture too) set none.
+int sdca_inner_prepare(int loss, int C, int stages, int per_thread, int n_k) {
+  KernelFn fn = kernel_for(loss, per_thread);
+  if (fn == nullptr || C < 1 || C > kMaxCluster) return (int)cudaErrorInvalidValue;
+  return (int)set_attributes(fn, C, smem_bytes(per_thread, stages, n_k));
+}
+
+// One SDCA epoch for B batch rows (B clusters of C CTAs) over K workers;
+// workers is the int32 map of batch rows to workers, or nullptr for batch
+// row b = worker b; map_error (2 ints, or nullptr for a map checked on the
+// host) takes a device map's bad entry;
+// alpha_rows != 0 reads alpha at batch row b; sigma_rows (B floats) or
+// nullptr for sigma_p on every row.
 int sdca_inner_launch(const void* w_eff, const void* alpha, const void* X, const void* y,
-                      const void* norms, const void* idx, const void* workers, void* dalpha,
+                      const void* norms, const void* idx, const void* workers, int K,
+                      int alpha_rows, const void* sigma_rows, void* map_error, void* dalpha,
                       void* v, int B, int n_k, int d, int H, float lam_n, float sigma_p,
                       int loss, int C, int stages, int per_thread, void* stream) {
   KernelFn fn = kernel_for(loss, per_thread);
@@ -702,7 +774,8 @@ int sdca_inner_launch(const void* w_eff, const void* alpha, const void* X, const
   cudaLaunchConfig_t cfg = config(B, C, kBlock, smem, (cudaStream_t)stream, attr);
   err = cudaLaunchKernelEx(&cfg, fn, (const float*)w_eff, (const float*)alpha,
                            (const float*)X, (const float*)y, (const float*)norms,
-                           (const int32_t*)idx, (const int32_t*)workers, (float*)dalpha,
+                           (const int32_t*)idx, (const int32_t*)workers, K, alpha_rows,
+                           (const float*)sigma_rows, (int*)map_error, (float*)dalpha,
                            (float*)v, n_k, d, H, chunk, stages, lam_n, sigma_p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -41,25 +41,34 @@ def topk_filter(dw: torch.Tensor, k: int):
 
 
 def sdca_epoch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
-               sigma_prime: float, idx, *, loss: str = "ridge", workers=None):
+               sigma_prime: float, idx, *, loss: str = "ridge", workers=None,
+               map_error=None, alpha_rows: bool = False, sigma_rows=None):
     """SDCA epoch of a batch of workers for ``loss``: ``(dalpha, v)``.
 
     ``X (K, n_k, d)``, ``alpha``, ``y``, ``norms_sq (K, n_k)`` hold every
-    worker; ``workers`` (B ints in ``[0, K)``, host data) names the worker of
-    each batch row, all K in order when it is None. ``w_eff (B, d)`` and the
-    int32 visit orders ``idx (B, H)`` are per batch row, and so are the
-    results, ``dalpha (B, n_k)`` and ``v (B, d)``. On the card this is one
-    launch of the CUDA kernel, one thread-block cluster per batch row, for
-    each of the three losses; on the CPU it is ``ref.sdca_inner_ref``, the
-    plain ``sdca_epoch_plain``.
+    worker; ``workers`` (B entries in ``[0, K)``) names the worker of each
+    batch row, all K in order when it is None. It is host data, or an int32
+    tensor on the input's device, which is used without a host check or
+    sync: on the card a bad entry lands in ``map_error``
+    (``sdca_inner.map_error_word``), read by the caller; on the CPU it
+    raises at once. ``w_eff (B, d)`` and the int32 visit orders ``idx (B,
+    H)`` are per batch row, and so are the results, ``dalpha (B, n_k)`` and
+    ``v (B, d)``; with ``alpha_rows`` so is ``alpha (B, n_k)``, and
+    ``sigma_rows (B,)`` gives each row its own sigma'. On the card this is
+    one launch of the CUDA kernel, one thread-block cluster per batch row,
+    for each of the three losses; on the CPU it is ``ref.sdca_inner_ref``,
+    the plain ``sdca_epoch_plain``.
     """
     if X.is_cuda:
         out = sdca_inner_cuda(w_eff, alpha, X, y, norms_sq, lam, n_global,
-                              sigma_prime, idx, loss=loss, workers=workers)
+                              sigma_prime, idx, loss=loss, workers=workers,
+                              map_error=map_error, alpha_rows=alpha_rows,
+                              sigma_rows=sigma_rows)
         LAUNCHES["sdca_inner"] += 1
         return out
     return ref.sdca_inner_ref(w_eff, alpha, X, y, norms_sq, lam, n_global,
-                              sigma_prime, idx, loss=loss, workers=workers)
+                              sigma_prime, idx, loss=loss, workers=workers,
+                              alpha_rows=alpha_rows, sigma_rows=sigma_rows)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: float | None = None):

@@ -31,14 +31,19 @@ def topk_filter_ref(dw: torch.Tensor, k: int):
 
 
 def sdca_inner_ref(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
-                   sigma_prime: float, idx, *, loss: str = "ridge", workers=None):
+                   sigma_prime: float, idx, *, loss: str = "ridge", workers=None,
+                   map_error=None, alpha_rows: bool = False, sigma_rows=None):
     """SDCA epoch for a batch of workers with explicit visit orders ``idx (B, H)``.
 
     Batch row b is worker ``workers[b]`` (all K workers in order without a
-    map). Returns ``(dalpha (B, n_k), v (B, d))``.
+    map; host data or a tensor, checked here: a bad entry raises
+    ``ValueError``, so ``map_error`` is never written). ``alpha_rows``
+    reads ``alpha (B, n_k)`` at the batch row, ``sigma_rows (B,)`` is sigma'
+    per row. Returns ``(dalpha (B, n_k), v (B, d))``.
     """
     dalpha, v = sdca.sdca_epoch_plain(loss, w_eff, alpha, X, y, norms_sq,
-                                      lam, n_global, sigma_prime, idx, workers)
+                                      lam, n_global, sigma_prime, idx, workers,
+                                      alpha_rows=alpha_rows, sigma_rows=sigma_rows)
     return dalpha, v
 
 

@@ -23,8 +23,21 @@ first slice stopped near 58,000). Steps whose index lies outside
 An optional worker map ``workers (B,)`` launches B clusters on any B of the
 K workers without copying their rows: cluster b reads the rows of ``X``,
 ``alpha``, ``y`` and ``norms_sq`` of worker ``workers[b]``, takes
-``w_eff[b]`` and ``idx[b]`` and writes ``dalpha[b]`` and ``v[b]``. It is
-host data, checked to lie in ``[0, K)`` before it is copied to the card.
+``w_eff[b]`` and ``idx[b]`` and writes ``dalpha[b]`` and ``v[b]``. Host
+data (a sequence or a CPU tensor) is checked to lie in ``[0, K)`` and
+copied to the card. An int32 tensor already on the card (an arrival order
+the device sorted) is used as it is, with no host check, copy or sync, so a
+launch inside a captured CUDA graph can take it: the kernel checks each
+entry, and a cluster whose entry lies outside ``[0, K)`` writes nothing and
+records the first such row and entry in ``map_error``, a two-int word from
+:func:`map_error_word` that the caller reads with its results and hands to
+:func:`raise_map_error`.
+
+Two more options run independent problems over one shared ``X`` (the
+variants of a sweep, ``V * K`` batch rows): ``alpha_rows=True`` reads
+``alpha (B, n_k)`` at batch row b instead of at the worker, and
+``sigma_rows (B,)``, a float32 tensor on the card, gives each row its own
+sigma'.
 """
 
 from __future__ import annotations
@@ -45,9 +58,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sdca_inner_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i,
-                                          i, i, i, p]
+        lib.sdca_inner_launch.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, p, i, i, i, i,
+                                          f, f, i, i, i, i, p]
         lib.sdca_inner_launch.restype = i
+        lib.sdca_inner_prepare.argtypes = [i, i, i, i, i]
+        lib.sdca_inner_prepare.restype = i
         lib.sdca_inner_plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         lib.sdca_inner_plan.restype = i
         lib.sdca_inner_max_d.argtypes = [i]
@@ -101,14 +116,52 @@ def plan(K: int, n_k: int, d: int) -> dict[str, int]:
     return _plan_dict(K, n_k, d, 0)
 
 
-def _check_inputs(w_eff, alpha, X, y, norms_sq, idx, loss: str, B: int) -> None:
+def prepare(loss: str, B: int, n_k: int, d: int) -> dict[str, int]:
+    """Load the library, cache the plan of a B-row launch and set its
+    kernel's attributes, so that a later launch of that shape calls no
+    occupancy query and no ``cudaFuncSetAttribute``: what a stream capture
+    needs. Returns the plan."""
+    if loss not in LOSSES:
+        raise ValueError(f"sdca_inner: unknown loss {loss!r}")
+    p = plan(B, n_k, d)
+    if p["cluster"] == 0:
+        raise ValueError(f"sdca_inner: no cluster takes B = {B}, n_k = {n_k}, d = {d}")
+    lib = _lib()
+    _build.check(lib, NAME, lib.sdca_inner_prepare(LOSSES[loss], p["cluster"], p["stages"],
+                                                   p["per_thread"], n_k),
+                 "sdca_inner prepare")
+    max_d(n_k)
+    return p
+
+
+def map_error_word(device) -> torch.Tensor:
+    """A zeroed error word for launches with a device worker map: after
+    them it holds ``{1 + batch row, entry}`` of the first entry outside
+    ``[0, K)``, or zeros."""
+    return torch.zeros(2, dtype=torch.int32, device=device)
+
+
+def raise_map_error(word, K: int) -> None:
+    """Raise ``ValueError`` naming the bad entry if the error word (host
+    values or a tensor, read here) records one."""
+    row, entry = (int(x) for x in (word.tolist() if isinstance(word, torch.Tensor)
+                                   else word))
+    if row:
+        raise ValueError(f"sdca_inner: worker map entry {entry} of batch row {row - 1} "
+                         f"lies outside [0, {K})")
+
+
+def _check_inputs(w_eff, alpha, X, y, norms_sq, idx, loss: str, B: int,
+                  alpha_rows: bool = False, sigma_rows=None) -> None:
     if loss not in LOSSES:
         raise ValueError(f"sdca_inner: unknown loss {loss!r}")
     K, n_k, d = X.shape
     H = idx.shape[1]
-    shapes = {"w_eff": (w_eff, (B, d)), "alpha": (alpha, (K, n_k)),
+    shapes = {"w_eff": (w_eff, (B, d)), "alpha": (alpha, (B if alpha_rows else K, n_k)),
               "X": (X, (K, n_k, d)), "y": (y, (K, n_k)),
               "norms_sq": (norms_sq, (K, n_k)), "idx": (idx, (B, H))}
+    if sigma_rows is not None:
+        shapes["sigma_rows"] = (sigma_rows, (B,))
     for name, (t, shape) in shapes.items():
         want = torch.int32 if name == "idx" else torch.float32
         if not t.is_cuda or t.device != X.device:
@@ -121,11 +174,23 @@ def _check_inputs(w_eff, alpha, X, y, norms_sq, idx, loss: str, B: int) -> None:
                 f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
+def _device_map(workers: torch.Tensor, map_error, device) -> torch.Tensor:
+    """A worker map already on the card, taken as it is (no sync)."""
+    if workers.device != device or workers.dtype != torch.int32 or workers.dim() != 1 \
+            or not workers.is_contiguous() or workers.numel() == 0:
+        raise ValueError(f"sdca_inner: a worker map on the card must be a non-empty "
+                         f"contiguous 1-D int32 tensor on {device}, got {workers.dtype} "
+                         f"{tuple(workers.shape)} on {workers.device}")
+    if (not isinstance(map_error, torch.Tensor) or map_error.device != device
+            or map_error.dtype != torch.int32 or tuple(map_error.shape) != (2,)):
+        raise ValueError("sdca_inner: a worker map on the card needs map_error, the "
+                         "int32 word of map_error_word() on the same device, which the "
+                         "caller reads after the launch (raise_map_error)")
+    return workers
+
+
 def _worker_map(workers, K: int, device) -> torch.Tensor:
-    """The map as an int32 tensor on ``device``, checked on the host first."""
-    if isinstance(workers, torch.Tensor) and workers.device.type != "cpu":
-        raise ValueError("sdca_inner: workers must be host data (a sequence or a CPU "
-                         "tensor), checked before it is copied to the card")
+    """A host map as an int32 tensor on ``device``, checked on the host first."""
     host = torch.as_tensor(workers, dtype=torch.int64).flatten()
     if host.numel() == 0:
         raise ValueError("sdca_inner: workers is empty")
@@ -136,30 +201,38 @@ def _worker_map(workers, K: int, device) -> torch.Tensor:
 
 
 def sdca_inner_cuda(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
-                    sigma_prime: float, idx, *, loss: str = "ridge",
-                    workers=None) -> tuple[torch.Tensor, torch.Tensor]:
+                    sigma_prime: float, idx, *, loss: str = "ridge", workers=None,
+                    map_error=None, alpha_rows: bool = False,
+                    sigma_rows=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel by :func:`plan`; returns ``(dalpha (B, n_k), v (B, d))``.
 
     B is K without a worker map, ``len(workers)`` with one. The launch is
-    asynchronous on the current stream.
+    asynchronous on the current stream; with a map on the card it makes no
+    host sync (see the module docstring for ``map_error``, ``alpha_rows``
+    and ``sigma_rows``).
     """
     K, n_k, d = X.shape
-    wmap = None if workers is None else _worker_map(workers, K, X.device)
+    if isinstance(workers, torch.Tensor) and workers.is_cuda:
+        wmap, err = _device_map(workers, map_error, X.device), map_error
+    else:
+        wmap = None if workers is None else _worker_map(workers, K, X.device)
+        err = None
     B = K if wmap is None else wmap.numel()
-    _check_inputs(w_eff, alpha, X, y, norms_sq, idx, loss, B)
+    _check_inputs(w_eff, alpha, X, y, norms_sq, idx, loss, B, alpha_rows, sigma_rows)
     with torch.cuda.device(X.device):
         return _launch(w_eff, alpha, X, y, norms_sq, lam, n_global, sigma_prime, idx,
-                       loss, plan(B, n_k, d), wmap)
+                       loss, plan(B, n_k, d), wmap, err, alpha_rows, sigma_rows)
 
 
 def _launch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int, sigma_prime: float,
-            idx, loss: str, p: dict[str, int],
-            wmap: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+            idx, loss: str, p: dict[str, int], wmap: torch.Tensor | None = None,
+            map_error: torch.Tensor | None = None, alpha_rows: bool = False,
+            sigma_rows: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch with the plan ``p``, on inputs :func:`sdca_inner_cuda` has checked.
 
-    :func:`sdca_inner_cuda` passes :func:`plan`'s and the checked worker map
-    (an int32 tensor on the card, or None); a measurement of another cluster
-    size passes ``_plan_dict(B, n_k, d, C)``.
+    :func:`sdca_inner_cuda` passes :func:`plan`'s and the worker map (an
+    int32 tensor on the card, or None) with its error word; a measurement
+    of another cluster size passes ``_plan_dict(B, n_k, d, C)``.
     """
     K, n_k, d = X.shape
     B = idx.shape[0]
@@ -178,6 +251,8 @@ def _launch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int, sigma_prime
         code = lib.sdca_inner_launch(
             w_eff.data_ptr(), alpha.data_ptr(), X.data_ptr(), y.data_ptr(),
             norms_sq.data_ptr(), idx.data_ptr(), None if wmap is None else wmap.data_ptr(),
+            K, int(alpha_rows), None if sigma_rows is None else sigma_rows.data_ptr(),
+            None if map_error is None else map_error.data_ptr(),
             dalpha.data_ptr(), v.data_ptr(), B, n_k, d, idx.shape[1],
             lam_n_f32(lam, n_global), float(sigma_prime), LOSSES[loss], p["cluster"],
             p["stages"], p["per_thread"], stream)

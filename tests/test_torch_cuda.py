@@ -1,6 +1,10 @@
 """The port's kernels on the card, against their plain versions.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without one.
+The SDCA kernel's map modes (a worker map on the card with its error word,
+``alpha`` and sigma' per row) are held to the host map and to separate
+launches bit for bit, and the whole-run executor's captured graph to the
+card's event engine bit for bit.
 The file imports no JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -133,11 +137,125 @@ def test_sdca_kernel_worker_map(cuda, K, n_k, d, H, workers, loss):
     if workers == list(range(K)):
         assert torch.equal(da_m, ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx,
                                                 loss=loss)[0])
-    with pytest.raises(ValueError, match="host data"):
+    with pytest.raises(ValueError, match="int32 tensor|map_error"):
         ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx, loss=loss, workers=g)
     with pytest.raises(ValueError, match=r"\[0, 8\)|\[0, 4\)"):
         ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx, loss=loss,
                        workers=[K] + workers[1:])
+
+
+@pytest.mark.parametrize("loss", ["ridge", "logistic"])
+@pytest.mark.parametrize("K,n_k,d,H,workers", [
+    (8, 64, 2048, 120, [5, 2, 7]), (8, 32, 47_236, 40, [5, 2, 7, 0]),
+    (4, 32, 4096, 60, [3, 3, 0])])
+def test_sdca_kernel_device_map(cuda, K, n_k, d, H, workers, loss):
+    # A map already on the card is taken as it is (no host sync): bit for bit
+    # the host map's launch; a bad entry writes nothing and lands in the
+    # error word, which raises once read.
+    args, idx_all = _sdca_inputs(K, n_k, d, H, cuda, loss, "repeats_and_outside")
+    w, alpha, X, y, norms = args
+    B = len(workers)
+    w_b, idx = w[:B].contiguous(), idx_all[:B].contiguous()
+    lam, n, sp = 1e-3, K * n_k, 2.0
+    da_h, v_h = ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx, loss=loss,
+                               workers=workers)
+    dmap = torch.tensor(workers, dtype=torch.int32, device=cuda)
+    err = sdca_inner.map_error_word(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        da_d, v_d = ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx, loss=loss,
+                                   workers=dmap, map_error=err)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(da_d, da_h) and torch.equal(v_d, v_h)
+    sdca_inner.raise_map_error(err, K)
+    bad = dmap.clone()
+    bad[1] = K
+    err = sdca_inner.map_error_word(cuda)
+    ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx, loss=loss, workers=bad,
+                   map_error=err)
+    with pytest.raises(ValueError, match=f"entry {K} of batch row 1"):
+        sdca_inner.raise_map_error(err, K)
+    with pytest.raises(ValueError, match="map_error"):
+        ops.sdca_epoch(w_b, alpha, X, y, norms, lam, n, sp, idx, loss=loss, workers=dmap)
+
+
+@pytest.mark.parametrize("V", [2, 3])
+def test_sdca_kernel_rows_of_variants(cuda, V):
+    # V variants x K workers over one X: alpha and sigma' read per row equal V
+    # launches of the same cluster size bit for bit, and the plain version.
+    K, n_k, d, H = 4, 64, 4096, 80
+    args, idx = _sdca_inputs(K, n_k, d, H, cuda)
+    w, alpha, X, y, norms = args
+    lam, n = 1e-3, K * n_k
+    sigmas = [1.0 + v for v in range(V)]
+    alpha_v = torch.cat([(0.5 ** v) * alpha for v in range(V)]).contiguous()
+    w_v = torch.cat([w * (v + 1) for v in range(V)]).contiguous()
+    idx_v = torch.cat([idx.roll(v, dims=1) for v in range(V)]).contiguous()
+    sig = torch.tensor([s for s in sigmas for _ in range(K)], device=cuda)
+    wm = torch.arange(K, dtype=torch.int32, device=cuda).repeat(V)
+    err = sdca_inner.map_error_word(cuda)
+    da, v = ops.sdca_epoch(w_v, alpha_v, X, y, norms, lam, n, 0.0, idx_v, workers=wm,
+                           map_error=err, alpha_rows=True, sigma_rows=sig)
+    plan = sdca_inner._plan_dict(K, n_k, d, sdca_inner.plan(V * K, n_k, d)["cluster"])
+    for i, s_ in enumerate(sigmas):
+        rows = slice(i * K, (i + 1) * K)
+        da_i, v_i = sdca_inner._launch(w_v[rows].contiguous(), alpha_v[rows].contiguous(),
+                                       X, y, norms, lam, n, s_, idx_v[rows].contiguous(),
+                                       "ridge", plan)
+        assert torch.equal(da[rows], da_i) and torch.equal(v[rows], v_i)
+    da_r, v_r = sdca.sdca_epoch_plain("ridge", w_v, alpha_v, X, y, norms, lam, n, 0.0,
+                                      idx_v, wm, alpha_rows=True, sigma_rows=sig)
+    torch.testing.assert_close(da, da_r, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(v, v_r, rtol=1e-4, atol=1e-5)
+
+
+SCAN_CASES = {
+    "sync": lambda K, d, H: baselines.cocoa_plus(K, H=H),
+    "cocoa_importance": lambda K, d, H: baselines.cocoa_v1(K, H=H, local_solver="importance"),
+    "cocoa_plus_accelerated": lambda K, d, H: baselines.cocoa_plus_solver(
+        K, H=H, local_solver="accelerated"),
+    "lag": lambda K, d, H: baselines.acpd_lag(K, d, B=2, T=5, rho_d=32, H=H, lag_window=3),
+    "partial_work": lambda K, d, H: baselines.acpd_partial_work(K, d, B=2, T=5, rho_d=32,
+                                                                H=H, n_chunks=4),
+}
+
+
+@pytest.mark.parametrize("delay", ["constant", "pareto"])
+@pytest.mark.parametrize("name", sorted(SCAN_CASES))
+def test_scan_on_the_card_equals_its_event_run(cuda, name, delay):
+    # The whole-run executor as one captured graph: equal to the card's event
+    # engine bit for bit, one capture for two runs, launches by the event
+    # engine's rule, the replay free of host syncs.
+    from repro_torch.api.session import Session
+    from repro_torch.core import executor
+
+    K, d, H = 4, 512, 64
+    m = SCAN_CASES[name](K, d, H)
+    cl = ClusterModel(K, straggler_sigma=4.0, delay_model=delay)
+    problem = problems.rcv1_like(K=K, d=d, n_per_worker=64, device=cuda)
+    outer = 2 if m.protocol in ("lag", "partial_work") else 4
+    before = ops.LAUNCHES["sdca_inner"]
+    event = Session(problem, m, cl, num_outer=outer, seed=3, executor="event",
+                    device=cuda).run()
+    want = ops.LAUNCHES["sdca_inner"] - before
+    executor.clear_cache()
+    executor.reset_stats()
+    runs = []
+    executor.REPLAY_SYNC_DEBUG = "error"
+    try:
+        for _ in range(2):
+            before = ops.LAUNCHES["sdca_inner"]
+            runs.append(Session(problem, m, cl, num_outer=outer, seed=3, executor="scan",
+                                device=cuda).run())
+            assert ops.LAUNCHES["sdca_inner"] - before == want
+    finally:
+        executor.REPLAY_SYNC_DEBUG = 0
+    assert sum(v for k, v in executor.STATS.items() if k.endswith("_traces")) == 1
+    for run in runs:
+        assert [r.__dict__ for r in run.records] == [r.__dict__ for r in event.records]
+        assert np.array_equal(run.w, event.w) and np.array_equal(run.alpha, event.alpha)
 
 
 @pytest.mark.parametrize("C", [8, 16])

@@ -266,7 +266,11 @@ def test_session_result_and_single_use_stream(problems):
     assert len(s.result().records) == tm.T
     auto = Session(tp, tm, TCluster(K), num_outer=1, seed=1, executor="auto",
                    device="cpu")
-    assert auto.executor == "event"  # until the scan executor is ported
+    assert auto.executor == "event"  # group has host-adaptive control flow
+    _, lockstep = _methods("sync")
+    auto = Session(tp, lockstep, TCluster(K), num_outer=1, seed=1, executor="auto",
+                   device="cpu")
+    assert auto.executor == "scan"  # the whole-run executor takes cocoa_plus
 
 
 def test_registries_and_errors(problems):
@@ -310,9 +314,9 @@ def test_registries_and_errors(problems):
         Session(tp, tbase.acpd(K, D, H=H), cl, num_outer=1, eval_mode="x", device="cpu")
     with pytest.raises(ValueError, match="executor"):
         Session(tp, tbase.acpd(K, D, H=H), cl, num_outer=1, executor="x", device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError, match="cannot run this spec"):
         Session(tp, tbase.acpd(K, D, H=H), cl, num_outer=1, executor="scan", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="cannot checkpoint"):
         Session(tp, tbase.acpd(K, D, H=H), cl, num_outer=1, checkpoint_dir="x",
                 checkpoint_every=1, device="cpu")
     with pytest.raises(ValueError, match="lives on"):
