@@ -26,7 +26,17 @@ small problem against the card's event engine bit for bit, CoCoA+, LAG,
 partial_work and a gap-stopped CoCoA+ at RCV1 width (one capture for two
 runs, launches by rule, the replay under sync debug mode "error"), the
 ``map`` and ``vmap`` sweeps, a killed and resumed checkpointed run, and
-``python -m repro_torch run`` on a written spec. It also checks that
+``python -m repro_torch run`` on a written spec. The experiment service's
+phases (``service_*``) build the service's own problem at RCV1 width and
+serve tenants through ``repro_torch.serve``: ``map`` and ``vmap`` waves of
+CoCoA+ cells and LAG waves (a wave that differs only in gammas, or pads to
+the same bucket, captures nothing), an ACPD request on the solo lane, waves
+of new graph signatures past the executor's cache (``memory_reserved``), a
+checkpointed run killed and resumed, the HTTP front end, a second service
+under the ``chaos`` schedule (an overrun batch whose abandoned attempt runs
+beside the solo lane, a transient retry, a NaN-poisoned LAG cell), and two
+cluster replicas, one killed at a checkpoint segment and taken over; every
+delivered stream is held to a solo ``Session`` on the card. It also checks that
 the bfloat16 flash kernel was compiled to tensor-core (HGMMA) and TMA
 instructions, and that one top-k filter call runs at most four kernels
 without a host sync. Launch counts are zeroed just before each path and
@@ -62,6 +72,9 @@ K, N_K, D, H = 8, 4096, 47_236, 1000
 B, T, RHO_D, GAMMA = 4, 20, 1000, 0.5
 SEED, LAM = 7, 1e-3
 COCOA_ROUNDS = 10
+# The experiment service's own problem: RCV1's width, n cut to 1,024 rows a
+# worker (1.55 GB of X) so that each of the service phases' builds is short.
+SVC_N_K = 1024
 # The engine's other protocols at RCV1 width: one outer round of T rounds
 # for the group family, ENGINE_LOCKSTEP_ROUNDS for the CoCoA solvers; the
 # worker map of the mapped-kernel check (B = 4 of the K = 8 workers).
@@ -996,9 +1009,489 @@ def main() -> int:
           "python -m repro_torch run ran the spec on the card")
 
     # Free the ACPD problem (6.2 GB of X) and the captured graphs' memory
-    # before the model's 29.5 GB.
+    # before the model's 29.5 GB (gc: objects in reference cycles hold some).
+    import gc
+
     executor.clear_cache()
     del problem, norms, upd, filtered, w_srv, alpha_t, res, res_c, idx, w_eff, alpha
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- main path 5: the experiment service (repro_torch.serve) -------------
+    # The service builds its own problem, n cut to SVC_N_K rows a worker (1.55
+    # GB of X) so that each service's build stays short. Tenants' CoCoA+ and
+    # LAG specs coalesce into sweep batches (one captured graph per batch
+    # signature), ACPD rides the solo lane; every delivered stream is held
+    # to a solo Session on the card (bit for bit under map, 1e-5 under vmap).
+    import threading
+    import urllib.request
+
+    import repro_torch.serve.service as svc_mod
+    from repro_torch import serve as svc_lib
+    from repro_torch.core import faults
+
+    svc_problem = ProblemSpec("rcv1_like", {"K": K, "d": D, "n_per_worker": SVC_N_K,
+                                            "seed": SEED})
+
+    def svc_spec(name, method, *, seed, sigma=10.0, num_outer=COCOA_ROUNDS,
+                 delay="constant", params=None, **kw):
+        return ExperimentSpec(
+            name=name, problem=svc_problem,
+            cluster=ClusterModel(K, straggler_sigma=sigma, delay_model=delay,
+                                 delay_params=tuple((params or {}).items())),
+            methods=(MethodEntry(method, num_outer),), eval_every=1, seed=seed, **kw)
+
+    def cocoa_at(gamma):
+        return baselines.cocoa_plus_solver(K, H=H, gamma=gamma)  # sigma' = gamma * K
+
+    def lag_at(gamma):
+        return baselines.acpd_lag(K, D, B=B, T=T, rho_d=RHO_D, gamma=gamma, H=H)
+
+    def policy(batch="map", max_wait_s=0.0):
+        return svc_lib.CoalescePolicy(max_batch=16, max_wait_s=max_wait_s,
+                                      max_tenant_depth=8, batch=batch, shard="none")
+
+    solos: dict[str, tuple] = {}
+
+    def solo_of(spec):
+        """(events, result, wall s) of the spec's solo Session on the card, on
+        the reference problem (every service's build is the same data)."""
+        spec = dataclasses.replace(spec, checkpoint_every=None)
+        key = spec.to_json()
+        if key not in solos:
+            entry = spec.methods[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess = Session(svc_prob, entry.config, spec.cluster, num_outer=entry.num_outer,
+                           seed=spec.seed, eval_every=spec.eval_every, executor=spec.executor,
+                           device=dev)
+            events = list(sess.events())
+            torch.cuda.synchronize()
+            solos[key] = (events, sess.result(), time.perf_counter() - t0)
+        return solos[key]
+
+    def close_to(events, result, spec, rtol=1e-5):
+        """vmap: the event types and every accounting field equal, the
+        certificates and w within rtol of the solo run."""
+        s_events, s_res, _ = solo_of(spec)
+        if [type(e) for e in events] != [type(e) for e in s_events]:
+            return False
+        for a, b in zip(events, s_events):
+            fa, fb = dataclasses.asdict(a), dataclasses.asdict(b)
+            for f in ("gap", "gap_server", "primal", "dual"):
+                if f in fa and abs(fa.pop(f) - fb[f]) > rtol * abs(fb.pop(f)):
+                    return False
+            if fa != fb:
+                return False
+        return float(np.max(np.abs(result.w - s_res.w))) <= rtol * float(
+            np.max(np.abs(s_res.w)))
+
+    def run_wave(svc, name, items, *, want_captures=None, want_launches=None,
+                 want_errors=None, compare=True):
+        """Submit ``items`` ((tenant, spec)), drain, and hold every stream to
+        its solo run (unless not ``compare``); ``want_errors`` maps an item to
+        the typed error it must end in. Returns the wave's row."""
+        batch = svc.policy.batch
+        proto = items[0][1].methods[0].config.protocol
+        stat = "sweep_lag" if proto == "lag" else "sweep"
+        traces0, calls0 = executor.STATS[f"{stat}_traces"], executor.STATS[f"{stat}_calls"]
+        cache0, counters0 = svc.compile_cache.stats(), dict(svc.counters)
+        got: dict[int, tuple] = {}
+
+        def consume(i, h, t_sub):
+            events, first, err = [], None, None
+            try:
+                for ev in h.events():
+                    first = time.perf_counter() if first is None else first
+                    events.append(ev)
+            except Exception as e:  # the typed outcome is checked below
+                err = e
+            got[i] = (h, events, err, None if first is None else first - t_sub,
+                      time.perf_counter() - t_sub)
+
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        consumers = []
+        for i, (tenant, spec) in enumerate(items):
+            t_sub = time.perf_counter()
+            consumers.append(threading.Thread(target=consume,
+                                              args=(i, svc.submit(tenant, spec), t_sub)))
+            consumers[-1].start()
+        t0 = time.perf_counter()
+        svc.drain()
+        torch.cuda.synchronize()
+        wall_ = time.perf_counter() - t0
+        for th in consumers:
+            th.join()
+        # An attempt abandoned at its deadline runs on to its end on its own
+        # thread: join it, so that the wave's count holds its launches.
+        for th in threading.enumerate():
+            if th.name.startswith("deadline-batch"):
+                th.join()
+        launches[f"service_{name}"] = dict(ops.LAUNCHES)
+        outcomes, all_ok = [], True
+        for i, (tenant, spec) in enumerate(items):
+            h, events, err, first_s, stop_s = got[i]
+            want = (want_errors or {}).get(i)
+            if want is not None or err is not None:
+                ok = want is not None and isinstance(err, want)
+            elif not compare:
+                ok = True
+            elif batch == "vmap" and proto != "group":
+                ok = close_to(events, h.result(), spec)
+            else:
+                s_events, s_res, _ = solo_of(spec)
+                ok = events == s_events and state_equal(h.result(), s_res)
+            all_ok &= ok
+            outcomes.append(dict(tenant=tenant, seed=spec.seed,
+                                 gamma=spec.methods[0].config.gamma,
+                                 outcome="delivered" if err is None else type(err).__name__,
+                                 as_expected=ok, submit_to_first_event_s=first_s,
+                                 submit_to_stop_s=stop_s))
+        cache1 = svc.compile_cache.stats()
+        row = dict(wave=name, batch=batch, protocol=proto, tenants=len(items), wall_s=wall_,
+                   solo_wall_sum_s=(sum(solo_of(s)[2] for _, s in items) if compare
+                                    else None),
+                   captures=executor.STATS[f"{stat}_traces"] - traces0,
+                   runs=executor.STATS[f"{stat}_calls"] - calls0,
+                   cache_hits=cache1["hits"] - cache0["hits"],
+                   cache_misses=cache1["misses"] - cache0["misses"],
+                   counters={k: v - counters0[k] for k, v in svc.counters.items()
+                             if v != counters0[k]},
+                   sdca_launches=launches[f"service_{name}"]["sdca_inner"],
+                   memory_reserved_gb=torch.cuda.memory_reserved() / 1e9,
+                   memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                   all_as_expected=all_ok, by_tenant=outcomes)
+        check(all_ok, f"service wave {name}: every stream is what its solo run says")
+        if want_captures is not None:
+            check(row["captures"] == want_captures,
+                  f"service wave {name}: {row['captures']} captures, want {want_captures}")
+            check(row["cache_misses"] == want_captures
+                  and row["cache_hits"] == row["runs"] - want_captures,
+                  f"service wave {name}: the cache mirror agrees with the captures")
+        if want_launches is not None:
+            check(row["sdca_launches"] == want_launches,
+                  f"service wave {name}: {row['sdca_launches']} launches, want {want_launches}")
+        return row
+
+    # service_coalesce: map and vmap waves of 8, 3 and 4 CoCoA+ cells, two LAG
+    # waves, one ACPD request on the solo lane; the second wave of each pair
+    # differs from the first only in seeds and gammas (4 cells against 3: one
+    # padded bucket), so it captures nothing.
+    ck_dir = tempfile.TemporaryDirectory()
+    svc = svc_lib.ExperimentService(policy(), checkpoint_dir=ck_dir.name, device=dev)
+    t0 = time.perf_counter()
+    svc_prob = svc._problem_for(svc_spec("build", cocoa_at(1.0), seed=0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    # -- kernel 1d: sdca_inner at the service's shapes (n_k = SVC_N_K) ------
+    # The launches the service's paths make, each against the plain version
+    # on the same inputs (rtol 1e-4 / atol 1e-5, as kernel 1): the K-row
+    # launch of every solo lockstep run and map cell (sigma' per row), the
+    # 64-row launch of a vmap wave of 8 cells (device worker map, alpha and
+    # sigma' per row, four sigma's), and the B-row launch of a LAG cell
+    # (device worker map, sigma' per row).
+    svc_norms = torch.sum(svc_prob.X * svc_prob.X, dim=-1)
+    g_svc = torch.Generator(device=dev).manual_seed(SEED + 1)
+    sig_cells = [g_ * K for g_ in (0.25, 0.5, 0.75, 1.0)] * 2  # cocoa_plus: gamma * K
+    svc_cases = {
+        "solo_map_8rows": (K, None, False, torch.full((K,), sig_cells[1], device=dev)),
+        "vmap_64rows": (8 * K, torch.arange(K, dtype=torch.int32, device=dev).repeat(8), True,
+                        torch.tensor(sig_cells, device=dev).repeat_interleave(K)),
+        "lag_4rows": (B, torch.tensor(WORKER_MAP, dtype=torch.int32, device=dev), False,
+                      torch.full((B,), 0.5 * B, device=dev)),
+    }
+    svc_rows = {}
+    for case, (Bc, wmap, a_rows, sig_rows) in svc_cases.items():
+        w_c = 0.01 * torch.randn(Bc, D, generator=g_svc, device=dev)
+        a_c = 0.01 * torch.randn(Bc if a_rows else K, SVC_N_K, generator=g_svc, device=dev)
+        idx_c = torch.randint(0, SVC_N_K, (Bc, H), generator=g_svc, device=dev,
+                              dtype=torch.int32)
+        err_c = sdca_mod.map_error_word(dev)
+        args = (w_c, a_c, svc_prob.X, svc_prob.y, svc_norms, svc_prob.lam, svc_prob.n, 0.0,
+                idx_c)
+        kw = dict(loss=svc_prob.loss, workers=wmap, alpha_rows=a_rows, sigma_rows=sig_rows)
+        da_k, v_k = ops.sdca_epoch(*args, map_error=err_c, **kw)
+        da_r, v_r = ref.sdca_inner_ref(*args, **kw)
+        da_2, v_2 = ops.sdca_epoch(*args, map_error=err_c, **kw)
+        torch.cuda.synchronize()
+        sdca_mod.raise_map_error(err_c, K)
+        da_abs, da_rel = errors(da_k, da_r)
+        v_abs, v_rel = errors(v_k, v_r)
+        ok = (torch.allclose(da_k, da_r, rtol=1e-4, atol=1e-5)
+              and torch.allclose(v_k, v_r, rtol=1e-4, atol=1e-5))
+        bitwise = bool(torch.equal(da_k, da_2) and torch.equal(v_k, v_2))
+        ms = time_ms(lambda: ops.sdca_epoch(*args, map_error=err_c, **kw), warmup=2, reps=10)
+        plain_ms = time_ms(lambda: ref.sdca_inner_ref(*args, **kw), warmup=0, reps=1)
+        p_c = sdca_mod.plan(Bc, SVC_N_K, D)
+        rows_c = sum(int(torch.unique(idx_c[b]).numel()) for b in range(Bc))
+        nbytes_c = rows_c * D * 4 + Bc * D * 4 * 2 + Bc * SVC_N_K * 4 * 4 + Bc * H * 4
+        svc_rows[case] = dict(
+            rows=Bc, worker_map=wmap is not None, alpha_rows=a_rows, sigma_rows=True,
+            cluster=p_c["cluster"], stages=p_c["stages"], per_thread=p_c["per_thread"],
+            dalpha_abs=da_abs, dalpha_rel=da_rel, v_abs=v_abs, v_rel=v_rel, within=ok,
+            repeat_bitwise=bitwise, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(nbytes_c / PEAK_BYTES, 6 * D * H * Bc / PEAK_F32) * 1e3)
+        check(ok, f"sdca_inner at the service's {case} within rtol 1e-4 / atol 1e-5 of its "
+                  f"plain version")
+        check(bitwise, f"sdca_inner at the service's {case} repeats bit for bit")
+        del w_c, a_c, idx_c, da_k, v_k, da_r, v_r, da_2, v_2
+    emit("kernel_sdca_inner_service_check", shape=dict(K=K, n_k=SVC_N_K, d=D, H=H),
+         loss=svc_prob.loss, rtol=1e-4, atol=1e-5, by_launch=svc_rows)
+    kernels["sdca_inner"].update(
+        max_abs_err=max(kernels["sdca_inner"]["max_abs_err"],
+                        *(max(r["dalpha_abs"], r["v_abs"]) for r in svc_rows.values())),
+        ms_service={c: r["ms"] for c, r in svc_rows.items()},
+        plain_ms_service={c: r["plain_ms"] for c, r in svc_rows.items()},
+        bound_ms_service={c: r["bound_ms"] for c, r in svc_rows.items()})
+    del svc_norms
+
+    for warm in (svc_spec("w", cocoa_at(1.0), seed=99),
+                 svc_spec("w", lag_at(0.5), seed=99, num_outer=1)):
+        solo_of(warm)  # the solo runs' own graphs, captured before any timing
+    sigmas = (1.0, 10.0)
+
+    def cocoa_wave(name, n, gammas, seed0):
+        return [(f"tenant{i % 4}", svc_spec(f"{name}{i}", cocoa_at(gammas[i % len(gammas)]),
+                                            seed=seed0 + i, sigma=sigmas[(i // 2) % 2]))
+                for i in range(n)]
+
+    rows = []
+    for batch in ("map", "vmap"):
+        svc.policy = policy(batch)
+        per_cell = COCOA_ROUNDS if batch == "map" else 0
+        # The warm 3- and 5-cell waves run 4 and 8 cells' work (the padding)
+        # beside the sum of their solo replays.
+        for name, n, gammas, seed0, captures in (
+                ("8", 8, (0.5, 1.0), 0, 1), ("3", 3, (0.5, 1.0), 8, 1),
+                ("4", 4, (1.0, 0.5, 0.25, 0.75), 11, 0), ("8_warm", 8, (0.25, 0.75), 15, 0),
+                ("3_warm", 3, (0.25, 0.75), 23, 0), ("5_warm", 5, (0.5, 0.25), 26, 0)):
+            cells = engine._bucket_size(n)  # the padded bucket
+            rows.append(run_wave(svc, f"cocoa_{batch}{name}",
+                                 cocoa_wave(f"{batch}{name}-", n, gammas, seed0),
+                                 want_captures=captures,
+                                 want_launches=per_cell * cells or COCOA_ROUNDS))
+    svc.policy = policy("map")
+    lag_delays = (("constant", None), ("shifted_exponential", {"tail_mean": 1.0}))
+
+    def lag_wave(name, gammas, seed0):
+        return [(f"tenant{i}", svc_spec(f"{name}{i}", lag_at(gammas[i % len(gammas)]),
+                                        seed=seed0 + i, num_outer=1,
+                                        delay=lag_delays[i % 2][0], params=lag_delays[i % 2][1]))
+                for i in range(4)]
+
+    rows.append(run_wave(svc, "lag_map4", lag_wave("l", (0.5,), 20), want_captures=1,
+                         want_launches=4 * (1 + T)))
+    rows.append(run_wave(svc, "lag_map4_gammas", lag_wave("m", (0.25, 0.75), 24),
+                         want_captures=0, want_launches=4 * (1 + T)))
+    rows.append(run_wave(svc, "acpd_solo",
+                         [("tenant0", svc_spec("acpd", baselines.acpd(K, D, B=B, T=T,
+                                                                      rho_d=RHO_D, H=H),
+                                               seed=30, num_outer=1))],
+                         want_launches=1 + T))
+    check(svc.counters["solo_requests"] == 1, "the ACPD request took the solo lane")
+    lock_reps = 100_000
+    t0 = time.perf_counter()
+    for _ in range(lock_reps):
+        with executor._LOCK:
+            pass
+    lock_us = (time.perf_counter() - t0) / lock_reps * 1e6
+    emit("service_coalesce", problem=dict(K=K, n_per_worker=SVC_N_K, d=D, H=H,
+                                          X_gb=svc_prob.X.numel() * 4 / 1e9),
+         build_s=build_s, waves=rows, service_counters=dict(svc.counters),
+         compile_cache=svc.compile_cache.stats(), stats=dict(executor.STATS),
+         lock_acquire_release_us=lock_us,
+         memory_reserved_gb=torch.cuda.memory_reserved() / 1e9)
+
+    # service_memory: waves of 2 cells with 1..20 rounds, each a new graph
+    # signature, past the executor's 16 cached graphs; memory_reserved after
+    # each (the graphs' private pools).
+    svc.policy = policy("map")
+    mem = []
+    for rounds in range(1, 21):
+        run_wave(svc, "memory", [(f"tenant{i}", svc_spec(f"mem{rounds}-{i}", cocoa_at(1.0),
+                                                         seed=100 + i, num_outer=rounds))
+                                 for i in range(2)], want_captures=1, compare=False)
+        mem.append(dict(rounds=rounds, cached_graphs=len(executor._CACHE),
+                        memory_reserved_gb=torch.cuda.memory_reserved() / 1e9,
+                        memory_allocated_gb=torch.cuda.memory_allocated() / 1e9))
+    launches.pop("service_memory")
+    emit("service_memory", waves=mem, cache_size=executor._CACHE_SIZE,
+         grew_after_full=mem[-1]["memory_reserved_gb"] > max(
+             m["memory_reserved_gb"] for m in mem if m["cached_graphs"] < executor._CACHE_SIZE))
+
+    # service_checkpoint: a checkpointed CoCoA+ spec killed at the segment
+    # starting at round 5, resubmitted, resumed bit for bit.
+    ck = svc_spec("ck", cocoa_at(1.0), seed=40, checkpoint_every=5)
+    svc.fault = faults.get_fault("worker_crash")(crashes=0, crash_round=5)
+    killed_row = run_wave(svc, "checkpoint_killed", [("tenant0", ck)],
+                          want_errors={0: faults.WorkerCrashError}, want_launches=5)
+    svc.fault = faults.NoFault()
+    segments0 = executor.STATS["lockstep_segment_calls"]
+    resumed_row = run_wave(svc, "checkpoint", [("tenant0", dataclasses.replace(
+        ck, checkpoint_every=5))], want_launches=5)
+    emit("service_checkpoint", every=5, rounds=COCOA_ROUNDS, killed=killed_row,
+         resumed=resumed_row,
+         segments_after_resume=executor.STATS["lockstep_segment_calls"] - segments0)
+    check(executor.STATS["lockstep_segment_calls"] - segments0 == 1,
+          "the resumed run ran one segment")
+
+    # service_http: the dispatcher thread behind ThreadingHTTPServer.
+    svc.policy = policy("map", max_wait_s=0.01)
+    svc.start()
+    server = svc_lib.serve_http(svc, "127.0.0.1", 0)
+    server_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    server_thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    http_spec = svc_spec("http", cocoa_at(0.5), seed=50)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    req = urllib.request.Request(f"{base}/submit", method="POST", data=json.dumps(
+        {"tenant": "tenant0", "spec": http_spec.to_dict()}).encode())
+    with urllib.request.urlopen(req, timeout=300) as r:
+        job = json.loads(r.read())
+    with urllib.request.urlopen(f"{base}/events/{job['job_id']}", timeout=300) as r:
+        streamed = [svc_lib.event_from_dict(e) for e in json.loads(r.read())["events"]]
+    http_wall = time.perf_counter() - t0
+    with urllib.request.urlopen(f"{base}/stats", timeout=60) as r:
+        http_stats = json.loads(r.read())
+    launches["service_http"] = dict(ops.LAUNCHES)
+    server.shutdown()
+    server_thread.join()
+    svc.stop()
+    http_equal = streamed == solo_of(http_spec)[0]
+    emit("service_http", wall_s=http_wall, events=len(streamed), equal_solo=http_equal,
+         devices=http_stats["devices"], compile_cache=http_stats["compile_cache"],
+         launches=launches["service_http"])
+    check(http_equal, "the HTTP event stream equals the solo run")
+    check(http_stats["devices"]["platform"] == "gpu"
+          and http_stats["devices"]["kind"] == torch.cuda.get_device_name(0),
+          "GET /stats names the card")
+    del svc
+    ck_dir.cleanup()
+
+    # service_chaos: a second service under the chaos schedule and a batch
+    # deadline. A LAG batch (sigma' = gamma * B) is dispatched first: it
+    # overruns (the fault sleeps inside the watchdog window), is requeued on
+    # the solo lane, and its abandoned attempt wakes up and runs the batch,
+    # with its NaN-poisoned cell, on its own thread while this thread runs
+    # the CoCoA+ batch (one transient fault, one retry) and the solo lane.
+    # A second LAG wave is poisoned at the same cell and captures nothing.
+    deadline = 2.0
+    svc2 = svc_lib.ExperimentService(
+        policy("map"), device=dev,
+        recovery=svc_lib.RecoveryPolicy(max_attempts=3, backoff_base_s=0.001,
+                                        batch_deadline_s=deadline),
+        fault=faults.get_fault("chaos")(seed=5, delay_s=deadline + 0.05, poison=1))
+    t0 = time.perf_counter()
+    svc2._problem_for(svc_spec("build", cocoa_at(1.0), seed=0))
+    torch.cuda.synchronize()
+    build2_s = time.perf_counter() - t0
+    spans = []
+    real_sweep, real_solo = svc_mod.run_sweep_cells, svc2._run_solo
+
+    def timed_sweep(*a, **kw):
+        t_in = time.perf_counter()
+        out = real_sweep(*a, **kw)  # its results are on the host when it returns
+        spans.append(("sweep", threading.current_thread().name, t_in, time.perf_counter(),
+                      a[2], out))
+        return out
+
+    def timed_solo(req):
+        t_in = time.perf_counter()
+        real_solo(req)
+        spans.append(("solo", threading.current_thread().name, t_in, time.perf_counter(),
+                      None, None))
+
+    svc_mod.run_sweep_cells, svc2._run_solo = timed_sweep, timed_solo
+    try:
+        lag_items = lag_wave("x", (0.5,), 60)
+        cocoa_items = cocoa_wave("y", 4, (0.5, 1.0), 64)
+        # The abandoned LAG batch (4 cells, 4 * (1 + T)), the same 4 cells
+        # on the solo lane, and the CoCoA+ batch's retry (4 cells, 10 rounds).
+        first = run_wave(svc2, "chaos_overrun_and_retry", lag_items + cocoa_items,
+                         want_launches=2 * 4 * (1 + T) + 4 * COCOA_ROUNDS)
+        poison_at = svc2.fault.poison_cells(4, svc_lib.batch_key(
+            lag_items[0][1], lag_items[0][1].methods[0], policy=svc2.policy))
+        second = run_wave(svc2, "chaos_poisoned_lag", lag_wave("z", (0.25, 0.75), 70),
+                          want_captures=0, want_launches=4 * (1 + T),
+                          want_errors={i: svc_lib.CellDivergenceError for i in poison_at})
+    finally:
+        svc_mod.run_sweep_cells, svc2._run_solo = real_sweep, real_solo
+    c = first["counters"]
+    check(c.get("timeouts") == 1 and c.get("requeued_solo") == 4 and c.get("retries") == 1
+          and c.get("batches") == 1 and c.get("solo_requests") == 4 and not c.get("failed"),
+          f"chaos: one overrun requeued 4 solo, one retry, one batch ({c})")
+    abandoned = [s for s in spans if s[1].startswith("deadline-batch") and s[4][0].seed == 60]
+    check(len(abandoned) == 1, "the overrun LAG batch's abandoned attempt ran to its end")
+    _, ab_thread, ab_in, ab_out, ab_cells, ab_variants = abandoned[0]
+    others = [s for s in spans if s is not abandoned[0]]  # the batch, the solo lane
+    overlap = sum(max(0.0, min(ab_out, s[3]) - max(ab_in, s[2])) for s in others)
+    finite = executor.finite_certificates(ab_variants).tolist()
+    ab_equal = all(state_equal(v.result, solo_of(spec)[1]) and records_equal(
+        v.result, solo_of(spec)[1]) for i, (v, (_, spec)) in enumerate(zip(ab_variants,
+                                                                           lag_items))
+        if i not in poison_at)
+    c2 = second["counters"]
+    emit("service_chaos", deadline_s=deadline, build_s=build2_s, waves=[first, second],
+         poisoned_cells=list(poison_at), abandoned_attempt=dict(
+             thread=ab_thread, seconds=ab_out - ab_in, overlap_with_this_thread_s=overlap,
+             finite=finite, healthy_cells_equal_solo=ab_equal),
+         service_counters=dict(svc2.counters))
+    check(overlap > 0.0, "the abandoned attempt ran while this thread served the batch "
+                         "and the solo lane")
+    check(ab_equal and [not f for f in finite] == [i in poison_at for i in range(4)],
+          "the abandoned attempt's healthy cells equal their solo runs; only the "
+          "poisoned cell diverged")
+    check(c2.get("masked_cells") == 1 and c2.get("failed") == 1,
+          "the poisoned LAG wave failed exactly its poisoned tenant")
+    del svc2
+
+    # service_cluster: two in-process replicas on a temporary cluster
+    # directory; r0 is killed at the checkpoint segment starting at round 5,
+    # r1 takes its lease over and resumes; each job delivered exactly once.
+    with tempfile.TemporaryDirectory() as cdir:
+        clock = svc_lib.ManualClock()
+        kill = faults.get_fault("replica_kill")(replica="r0", at_segment=5)
+        replicas = [svc_lib.ClusterReplica(
+            cdir, rid, clock=clock, fault=kill if rid == "r0" else None, lease_ttl_s=5.0,
+            service_kwargs=dict(policy=policy("map"), device=dev)) for rid in ("r0", "r1")]
+        client = svc_lib.ClusterClient(cdir, clock=clock)
+        cl_specs = [svc_spec(f"cl{i}", cocoa_at(1.0), seed=80 + i, checkpoint_every=5)
+                    for i in range(2)]
+        keys = [client.submit(f"tenant{i}", s) for i, s in enumerate(cl_specs)]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = svc_lib.run_cluster(replicas, client, clock=clock, advance_s=1.0,
+                                      max_ticks=60)
+        torch.cuda.synchronize()
+        cluster_wall = time.perf_counter() - t0
+        launches["service_cluster"] = dict(ops.LAUNCHES)
+        delivered = []
+        for key, spec in zip(keys, cl_specs):
+            events, result = client.try_result(key)
+            plain = dataclasses.replace(spec, checkpoint_every=None)
+            record = json.loads((pathlib.Path(cdir) / "results" / f"{key}.json").read_text())
+            delivered.append(dict(owner=record["owner"], epoch=record["epoch"],
+                                  equal_solo=events == solo_of(plain)[0] and state_equal(
+                                      result, solo_of(plain)[1])))
+        n_results = len(list((pathlib.Path(cdir) / "results").glob("*.json")))
+        emit("service_cluster", wall_s=cluster_wall, ticks=summary["ticks"],
+             dead=summary["dead"], hung_jobs=summary["hung_jobs"], delivered=delivered,
+             result_records=n_results, replicas=summary["replicas"],
+             launches=launches["service_cluster"])
+        check("r0" in summary["dead"] and summary["hung_jobs"] == 0,
+              "r0 died at its segment and no job hung")
+        check(summary["replicas"]["r1"]["takeovers"] == 1, "r1 took the dead lease over")
+        check(n_results == 2 and all(d["equal_solo"] for d in delivered),
+              "each job delivered once, bit for bit its uninterrupted solo run")
+        check(any(d["owner"] == "r1" and d["epoch"] == 1 for d in delivered),
+              "the taken-over job was delivered by r1 at epoch 1")
+        del replicas
+    del svc_prob, solos, spans, abandoned, ab_variants, real_sweep, real_solo
+    executor.clear_cache()
+    gc.collect()  # the services and replicas hold their problems in reference cycles
     torch.cuda.empty_cache()
 
     # -- kernel 3: flash_attention_fwd at the serve shape and a ragged S -----

@@ -9,8 +9,11 @@ Subcommands:
   where it runs: CUDA unless given, and an error without a card.
 * ``spec <preset>``    -- print a preset spec as JSON: the text
   ``python -m repro spec <preset>`` prints.
-* ``bench``, ``analyze``, ``serve`` -- not ported yet; each exits nonzero
-  naming the ROADMAP item that ports it.
+* ``serve``            -- the multi-tenant experiment service over HTTP, or
+  with ``--replica-of <cluster-dir>`` one replica of the replicated cluster
+  (:func:`repro_torch.serve.http.main`; ``--device cpu`` for the host).
+* ``bench``, ``analyze`` -- not ported yet; each exits nonzero naming the
+  ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -22,8 +25,7 @@ import sys
 
 # Subcommands of ``python -m repro`` that the port does not have yet, with
 # the ROADMAP item that ports each.
-NOT_PORTED = {"bench": "A9 (benchmarks)", "analyze": "A8 (tooling)",
-              "serve": "A6 (checkpoint, faults and serve layer)"}
+NOT_PORTED = {"bench": "A9 (benchmarks)", "analyze": "A8 (tooling)"}
 
 
 def _cmd_run(args) -> int:
@@ -151,11 +153,19 @@ def main(argv: list[str] | None = None) -> int:
     for name, item in NOT_PORTED.items():
         sub.add_parser(name, add_help=False,
                        help=f"not ported yet (ROADMAP {item})").set_defaults(fn=None)
+    # `serve` owns its flag surface; the raw remainder is forwarded to it.
+    sub.add_parser("serve", add_help=False,
+                   help="multi-tenant experiment service over HTTP").set_defaults(fn=None)
 
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] in NOT_PORTED:
         return _not_ported(argv[0])
+    if argv and argv[0] == "serve":
+        from repro_torch.serve.http import main as serve_main
+
+        serve_main(argv[1:])
+        return 0
     args = parser.parse_args(argv)
     return args.fn(args)
 

@@ -22,6 +22,14 @@ lag queue consumes each cell's pre-sampled durations and link factors as
 inputs. Accounting comes back per cell; the deferred gap certificates are
 evaluated per cell after the run, as a solo run evaluates them.
 
+A sweep's graph is keyed as the JAX package keys its executables
+(:func:`sweep_key`): gamma and sigma' enter per cell as inputs (a method
+that derives sigma' from gamma, or a cell whose gamma is NaN, captures
+nothing new), the cell axis is padded to its power-of-two bucket by
+repeating the last cell, and the eval snapshots to theirs; the padded rows
+run real work and are dropped before evaluation. So the service's batches
+of 3 and of 4 cells share one capture.
+
 Sharding (``shard=``) keeps the JAX package's resolution rules
 (:func:`resolve_shard`), but a sweep runs on the one device its problem
 lives on, so every request resolves to the unsharded path there.
@@ -146,12 +154,11 @@ def _cell_inputs(v: int, inp: dict) -> dict:
     return {k[len(pre):]: t for k, t in inp.items() if k.startswith(pre)}
 
 
-def _lockstep_vmap_body(problem, solver, V: int, *, length: int, evals):
+def _lockstep_vmap_body(problem, solver, V: int, *, length: int, n_slots: int):
     """All cells' lockstep rounds batched: per round one solve of ``V * K``
     rows (``cells=V``), the aggregation per cell from the stacked rows."""
     K, n_k, d = problem.X.shape
     X, lam, loss, n = problem.X, problem.lam, problem.loss, problem.n
-    evals = set(evals)
 
     def fn(inp):
         y, norms_sq = inp["y"], inp["norms_sq"]
@@ -160,8 +167,9 @@ def _lockstep_vmap_body(problem, solver, V: int, *, length: int, evals):
         err = sdca_kernel.map_error_word(X.device)
         w = torch.zeros((V, d), dtype=X.dtype, device=X.device)
         alpha = torch.zeros((V * K, n_k), dtype=X.dtype, device=X.device)
+        ws = executor._snapshot_buffer(n_slots, (V, d), w)
+        alphas = executor._snapshot_buffer(n_slots, (V, K, n_k), alpha)
         slots = sorted(k for k in inp if k.startswith("orders_"))
-        ws, alphas = [], []
         for r in range(length):
             w_all = w.repeat_interleave(K, dim=0)
             dalpha, v = solver.solve([inp[s][r] for s in slots], w_all, alpha, X, y,
@@ -169,32 +177,27 @@ def _lockstep_vmap_body(problem, solver, V: int, *, length: int, evals):
                                      map_error=err)
             alpha = alpha + g_rows * dalpha
             w = w + gamma[:, None] * v.view(V, K, d).sum(dim=1)
-            if r in evals:
-                ws.append(w)
-                alphas.append(alpha.view(V, K, n_k))
-        out = {"w": w, "alpha": alpha.view(V, K, n_k), "map_error": err}
-        out["eval_ws"] = (torch.stack(ws, dim=1) if ws
-                          else torch.zeros((V, 0, d), dtype=X.dtype, device=X.device))
-        out["eval_alphas"] = (torch.stack(alphas, dim=1) if alphas else
-                              torch.zeros((V, 0, K, n_k), dtype=X.dtype, device=X.device))
-        return out
+            at = inp["eval_slot"][r:r + 1]
+            ws.index_copy_(0, at, w[None])
+            alphas.index_copy_(0, at, alpha.view(1, V, K, n_k))
+        return {"w": w, "alpha": alpha.view(V, K, n_k), "map_error": err,
+                "eval_ws": ws[:n_slots].transpose(0, 1).contiguous(),
+                "eval_alphas": alphas[:n_slots].transpose(0, 1).contiguous()}
 
     return fn
 
 
-def _lag_vmap_body(problem, method, sigma_ps, *, needs, comp, R, evals):
+def _lag_vmap_body(problem, method, V: int, *, needs, comp, R, n_slots):
     """All cells' LAG queues stepped together; each wave's relaunches of all
     cells are ONE kernel launch (worker map = the cells' sorted orders,
     ``alpha`` and sigma' per row)."""
-    K, n_k, d = problem.X.shape
     X = problem.X
-    evals = set(evals)
 
     def fn(inp):
         runs = [executor.QueueRun(problem, method, _cell_inputs(v, inp),
                                   chunk_steps=(method.H,), needs=needs, comp=comp,
-                                  sigma_p=sp, lag=True)
-                for v, sp in enumerate(sigma_ps)]
+                                  lag=True, n_slots=n_slots)
+                for v in range(V)]
         err = runs[0].map_error
         y, norms_sq = runs[0].problem.y, runs[0].norms_sq
 
@@ -207,8 +210,7 @@ def _lag_vmap_body(problem, method, sigma_ps, *, needs, comp, R, evals):
                 alphas.append(run.alpha.index_select(0, widx))
                 wmaps.append(widx.to(torch.int32))
                 idxs.append(run.inp["orders_0"][run.wave, :B])
-                sig.append(torch.full((B,), run.sigma_p, dtype=torch.float32,
-                                      device=X.device))
+                sig.append(run.sigma.expand(B))
             dalpha, v = ops.sdca_epoch(
                 torch.cat(w_eff), torch.cat(alphas), X, y, norms_sq, problem.lam,
                 problem.n, 0.0, torch.cat(idxs), loss=problem.loss,
@@ -226,7 +228,7 @@ def _lag_vmap_body(problem, method, sigma_ps, *, needs, comp, R, evals):
         for r in range(R):
             wave([run.server(r) for run in runs])
             for run in runs:
-                run.record(r, evals)
+                run.record(r)
         out = {}
         for v, run in enumerate(runs):
             o = run.outputs()
@@ -306,11 +308,46 @@ def _cell_methods(method, cells, K):
     return mcfgs, [m.resolved_sigma_prime(K) for m in mcfgs]
 
 
+def _padded(items: list) -> list:
+    """``items`` padded to the power-of-two bucket of their count by
+    repeating the last (the JAX package's ``_padded_cells``)."""
+    return items + [items[-1]] * (engine._bucket_size(len(items)) - len(items))
+
+
+def _lockstep_key(problem, method, num_cells, *, num_outer, eval_every, batch):
+    evals = executor._eval_indices(num_outer, eval_every)
+    return ("sweep", batch, str(problem.X.device), tuple(problem.X.shape), problem.loss,
+            method.H, executor.solver_name(method), num_outer, executor.eval_slots(evals),
+            lam_n_f32(problem.lam, problem.n), engine._bucket_size(num_cells))
+
+
+def _lag_key(problem, method, num_cells, *, num_outer, eval_every, batch):
+    K, n_k, d = problem.X.shape
+    R = num_outer * method.T
+    evals = executor._eval_indices(R, eval_every)
+    return ("sweep_lag", batch, str(problem.X.device), tuple(problem.X.shape), problem.loss,
+            method.H, compress_lib.for_method(method, d), executor.lag_needs(method, K, R),
+            executor.eval_slots(evals), method.lag_window,
+            lam_n_f32(problem.lam, problem.n), engine._bucket_size(num_cells))
+
+
+def sweep_key(problem, method, num_cells: int, *, num_outer: int, eval_every: int,
+              batch: str) -> tuple:
+    """The cache key (``executor.cache_key``) of the graph that
+    :func:`run_sweep_cells` runs ``num_cells`` cells of ``method`` in: equal
+    keys share one capture. Neither gamma, sigma', the cells' clusters and
+    seeds, nor the cell count within its power-of-two bucket enter it."""
+    make = _lag_key if method.protocol == "lag" else _lockstep_key
+    return executor.cache_key(make(problem, method, num_cells, num_outer=num_outer,
+                                   eval_every=eval_every, batch=batch), [problem.X])
+
+
 def _eval_cell(problem, rounds, evals, ws, alphas):
     """A cell's records from its snapshots: the solo run's batched evaluation."""
     if not evals:
         return []
-    p, dv, gap, gap_srv = engine._eval_batched(ws, alphas, problem)
+    E = len(evals)
+    p, dv, gap, gap_srv = engine._eval_batched(ws[:E], alphas[:E], problem)
     rows = zip(*(t.tolist() for t in (p, dv, gap, gap_srv)))
     return [executor._record(rounds[r], r, *row) for r, row in zip(evals, rows)]
 
@@ -322,22 +359,22 @@ def _lockstep_cells(problem, method, cells, *, num_outer, eval_every, batch):
     mcfgs, sigma_ps = _cell_methods(method, cells, K)
     norms_sq = torch.sum(problem.X * problem.X, dim=-1)
     evals = executor._eval_indices(R, eval_every)
+    n_slots = executor.eval_slots(evals)
     solver = executor.lockstep_solver(method)
     per_cell = []
     for c, m, sp in zip(cells, mcfgs, sigma_ps):
         draws = TorchDraws(c.seed, dev)
         _, _, inp = executor._lockstep_inputs(problem, m, norms_sq, draws, draws.root(),
-                                              sp, R)
+                                              sp, R, evals=evals)
         per_cell.append(inp)
     V = len(cells)
-    key = ("sweep", batch, str(dev), tuple(problem.X.shape), problem.loss, method.H,
-           executor.solver_name(method), R, tuple(evals),
-           lam_n_f32(problem.lam, problem.n), tuple(sigma_ps))
+    per_cell = _padded(per_cell)
+    V_pad = len(per_cell)
     if batch == "map":
         def body(inp):
+            fn = executor.lockstep_body(problem, solver, length=R, n_slots=n_slots)
             out = {}
-            for v, sp in enumerate(sigma_ps):
-                fn = executor.lockstep_body(problem, solver, sp, length=R, evals=evals)
+            for v in range(V_pad):
                 out.update(_prefixed(v, fn(_cell_inputs(v, inp))))
             return out
 
@@ -346,15 +383,17 @@ def _lockstep_cells(problem, method, cells, *, num_outer, eval_every, batch):
             inp.update(_prefixed(v, ci))
         batches = [K]
     else:
-        body = _lockstep_vmap_body(problem, solver, V, length=R, evals=evals)
+        body = _lockstep_vmap_body(problem, solver, V_pad, length=R, n_slots=n_slots)
         slots = sorted(k for k in per_cell[0] if k.startswith("orders_"))
-        inp = {"y": problem.y, "norms_sq": norms_sq,
-               "gamma": executor.host_input([m.gamma for m in mcfgs], torch.float32, dev),
-               "sigma_rows": executor.host_input(np.repeat(sigma_ps, K), torch.float32,
-                                                 dev)}
+        inp = {"y": problem.y, "norms_sq": norms_sq, "eval_slot": per_cell[0]["eval_slot"],
+               "gamma": executor.host_input([m.gamma for m in _padded(mcfgs)],
+                                            torch.float32, dev),
+               "sigma_rows": executor.host_input(np.repeat(_padded(sigma_ps), K),
+                                                 torch.float32, dev)}
         for s in slots:
             inp[s] = torch.cat([ci[s] for ci in per_cell], dim=1)
-        batches = [V * K]
+        batches = [V_pad * K]
+    key = _lockstep_key(problem, method, V, num_outer=R, eval_every=eval_every, batch=batch)
     run = executor._compiled(key, [problem.X], lambda: executor.Graphed(
         body, dev, "sweep", executor._prepare_kernel(problem, batches)))
     out = run(inp)
@@ -387,34 +426,39 @@ def _lag_cells(problem, method, cells, *, num_outer, eval_every, batch):
                 f"Session(executor='event')")
     comp = compress_lib.for_method(method, d)
     needs = executor.lag_needs(method, K, R)
-    mcfgs, sigma_ps = _cell_methods(method, cells, K)
+    mcfgs, _ = _cell_methods(method, cells, K)
     norms_sq = torch.sum(problem.X * problem.X, dim=-1)
     evals = executor._eval_indices(R, eval_every)
-    inp = {}
-    for v, (c, m) in enumerate(zip(cells, mcfgs)):
+    n_slots = executor.eval_slots(evals)
+    per_cell = []
+    for c, m in zip(cells, mcfgs):
         draws = TorchDraws(c.seed, dev)
-        inp.update(_prefixed(v, executor.queue_inputs(
+        per_cell.append(executor.queue_inputs(
             problem, m, c.cluster, norms_sq, draws, draws.root(), R=R, seed=c.seed,
-            needs=needs, chunk_steps=(method.H,))))
+            needs=needs, chunk_steps=(method.H,), evals=evals))
     V = len(cells)
-    key = ("sweep_lag", batch, str(dev), tuple(problem.X.shape), problem.loss, method.H,
-           comp, needs, tuple(evals), method.lag_window,
-           lam_n_f32(problem.lam, problem.n), tuple(sigma_ps))
+    per_cell = _padded(per_cell)
+    V_pad = len(per_cell)
+    inp = {}
+    for v, ci in enumerate(per_cell):
+        inp.update(_prefixed(v, ci))
     if batch == "map":
         def body(inp):
             out = {}
-            for v, (m, sp) in enumerate(zip(mcfgs, sigma_ps)):
-                run = executor.QueueRun(problem, m, _cell_inputs(v, inp),
+            for v in range(V_pad):
+                run = executor.QueueRun(problem, method, _cell_inputs(v, inp),
                                         chunk_steps=(method.H,), needs=needs, comp=comp,
-                                        sigma_p=sp, lag=True)
-                out.update(_prefixed(v, run.run(R, evals)))
+                                        lag=True, n_slots=n_slots)
+                out.update(_prefixed(v, run.run(R)))
             return out
 
         batches = (K,) + needs
     else:
-        body = _lag_vmap_body(problem, method, sigma_ps, needs=needs, comp=comp, R=R,
-                              evals=evals)
-        batches = tuple(V * b for b in (K,) + needs)
+        body = _lag_vmap_body(problem, method, V_pad, needs=needs, comp=comp, R=R,
+                              n_slots=n_slots)
+        batches = tuple(V_pad * b for b in (K,) + needs)
+    key = _lag_key(problem, method, V, num_outer=num_outer, eval_every=eval_every,
+                   batch=batch)
     run = executor._compiled(key, [problem.X], lambda: executor.Graphed(
         body, dev, "sweep_lag", executor._prepare_kernel(problem, batches)))
     out = run(inp)

@@ -155,6 +155,12 @@ class _Snapshot:
 # ---------------------------------------------------------------------------
 
 
+def _bucket_size(count: int) -> int:
+    """Next power of two >= count (the JAX package's padding rule for the
+    sweeps' cell and eval axes)."""
+    return 1 << max(0, count - 1).bit_length()
+
+
 def _eval_batched(ws: torch.Tensor, alphas: torch.Tensor, problem: objectives.Problem):
     """Every snapshot's certificate from two float32 passes over ``X``.
 
@@ -232,19 +238,26 @@ def lockstep_round(w: torch.Tensor, alpha: torch.Tensor, gamma, solve):
     return w + gamma * torch.sum(v, dim=0), alpha + gamma * dalpha
 
 
+def sigma_tensor(sigma_p: float, device) -> torch.Tensor:
+    """sigma' as the 0-dim float32 tensor every local solve reads."""
+    return torch.tensor(sigma_p, dtype=torch.float32, device=device)
+
+
 def group_local_rounds(w_local, alpha, residual, widx, workers, idx,
-                       problem: objectives.Problem, norms_sq, n: int, sigma_p: float,
+                       problem: objectives.Problem, norms_sq, n: int, sigma_p,
                        gamma, comp, *, num_steps: int | None = None, map_error=None):
     """Alg. 2 lines 4-9 for the workers ``widx`` (an int64 index) against
     their fixed ``w_local`` rows, as one ``ops.sdca_epoch`` launch with the
     worker map ``workers`` (host data, or int32 on the device with its
     ``map_error`` word) on the visit orders ``idx (B, H)``. ``residual``
-    holds their rows ``(B, d)``; ``alpha`` is updated in place. Returns
+    holds their rows ``(B, d)``; ``alpha`` is updated in place. ``sigma_p``
+    is a 0-dim float32 tensor that the kernel reads per row. Returns
     ``(alpha_rows, dw, sent, new_residual)``."""
     w_eff = w_local.index_select(0, widx) + gamma * residual
     dalpha, v = ops.sdca_epoch(w_eff, alpha, problem.X, problem.y, norms_sq, problem.lam,
-                               n, sigma_p, idx, loss=problem.loss, workers=workers,
-                               map_error=map_error)
+                               n, 0.0, idx, loss=problem.loss, workers=workers,
+                               map_error=map_error,
+                               sigma_rows=sigma_p.expand(idx.shape[0]).contiguous())
     return group_local_finish(alpha, widx, residual, dalpha, v, gamma, comp)
 
 
@@ -398,7 +411,7 @@ class Protocol:
         self.K, self.n_k, self.d = problem.X.shape
         self.n = self.K * self.n_k
         self.device = problem.X.device
-        self.sigma_p = method.resolved_sigma_prime(self.K)
+        self.sigma_p = sigma_tensor(method.resolved_sigma_prime(self.K), self.device)
         self.rng = np.random.default_rng(seed)
         self.draws = TorchDraws(seed, self.device) if draws is None else draws
         self.key = self.draws.root()
@@ -493,7 +506,7 @@ class GroupProtocol(Protocol):
     # -- the group relaunch: one kernel launch --------------------------------
 
     def _local_rounds(self, workers: list[int], widx: torch.Tensor, keys, num_steps: int,
-                      sigma_p: float, residual: torch.Tensor):
+                      sigma_p: torch.Tensor, residual: torch.Tensor):
         """Alg. 2 lines 4-9 for distinct ``workers`` against their fixed
         ``w_local`` rows, as one ``ops.sdca_epoch`` launch with the worker
         map. ``residual`` holds their rows ``(B, d)``; ``self.alpha`` is
@@ -1003,14 +1016,14 @@ class PartialWorkProtocol(GroupProtocol):
             out.append(self._rejoins.pop(0)[1])
         return out
 
-    def _live_sigma(self) -> float:
+    def _live_sigma(self) -> torch.Tensor:
         """sigma' for the next launch wave: the default formula at the LIVE
         worker count when elastic, the run's resolved sigma' otherwise."""
         if self.method.sigma_prime is not None or not self.cluster.membership:
             return self.sigma_p
         live = max(1, sum(self.cluster.live_at(k, self.sim_time)
                           for k in range(self.K)))
-        return self.default_sigma_prime(self.method, live)
+        return sigma_tensor(self.default_sigma_prime(self.method, live), self.device)
 
     # -- the chunked launch: one kernel launch per chunk --------------------
 

@@ -39,16 +39,27 @@ supported (protocol, delay) cell the executor equals the event engine bit
 for bit: trajectories, accounting, certificates.
 
 On the card a run is captured once per static signature (shapes, loss, H,
-solver, compressor, round count and arrival counts, eval rounds, and the
-scalars the kernel takes by value, lambda*n and sigma') and replayed: the
-run's inputs (orders, durations, gamma, link factors, ...) are copied into
-the graph's buffers, the graph replays, and its outputs are cloned out.
+solver, compressor, round count and arrival counts, the number of eval
+snapshots padded to a power of two, and lambda*n, which the kernel takes by
+value) and replayed: the run's inputs (orders, durations, gamma, sigma', the
+eval rounds' snapshot slots, link factors, ...) are copied into the graph's
+buffers, the graph replays, and its outputs are cloned out. sigma' is an
+input, read by the kernel per batch row, so runs that differ only in gamma
+share a graph whatever sigma' their protocol derives from it.
 ``STATS["*_traces"]`` counts captures and ``STATS["*_calls"]`` runs; Python
 does not run during a replay, so each graph records the ``sdca_inner``
 launches it holds and every replay adds them to ``ops.LAUNCHES``. On the
 CPU the same functions run eagerly (a cache entry still counts one trace
 per signature). There is no eager path on the card: a capture that fails
 raises.
+
+Threads: the experiment service runs batches on a dispatcher thread and
+abandons an overrun attempt on its own thread, which runs on. One
+process-wide lock (``_LOCK``) is held across a cache lookup, a capture, and
+a replay with its input copy and output clones, and across every update of
+``STATS``; replays of one graph are ordered on the device by an event, so a
+caller on another stream cannot overwrite the outputs another caller is
+still cloning.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ import contextlib
 import dataclasses
 import json
 import pathlib
+import threading
 import time
 import weakref
 import zlib
@@ -101,9 +113,15 @@ STATS = {"lockstep_calls": 0, "lockstep_traces": 0,
 REPLAY_SYNC_DEBUG: int | str = 0
 
 
+# Held across every use of the graph cache, every capture and replay on the
+# card, and every update of STATS (an eager run on the CPU runs outside it).
+_LOCK = threading.RLock()
+
+
 def reset_stats() -> None:
-    for k in STATS:
-        STATS[k] = 0
+    with _LOCK:
+        for k in STATS:
+            STATS[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +301,26 @@ def _eval_indices(num_rounds: int, eval_every: int) -> list[int]:
     return [it - 1 for it in range(1, num_rounds + 1) if it % eval_every == 0]
 
 
+def eval_slots(evals) -> int:
+    """How many snapshot rows a run keeps for ``evals``: their count padded
+    to a power of two, so runs of other eval cadences share a graph."""
+    return engine._bucket_size(len(evals)) if evals else 0
+
+
+def _slot_input(num_rounds: int, evals, device) -> torch.Tensor:
+    """Round r's snapshot row: its eval boundary's index, or the discard row
+    ``eval_slots(evals)`` for a round that keeps none."""
+    slot = np.full(num_rounds, eval_slots(evals), dtype=np.int64)
+    slot[list(evals)] = np.arange(len(evals))
+    return host_input(slot, torch.int64, device)
+
+
+def _snapshot_buffer(n_slots: int, shape, like: torch.Tensor) -> torch.Tensor:
+    """Snapshot rows plus the discard row, filled in the graph by
+    ``index_copy_`` at each round's slot."""
+    return torch.zeros((n_slots + 1, *shape), dtype=like.dtype, device=like.device)
+
+
 # ---------------------------------------------------------------------------
 # One run function, captured once and replayed.
 # ---------------------------------------------------------------------------
@@ -323,21 +361,30 @@ class Graphed:
         self.static_out: dict[str, torch.Tensor] = {}
         self.launches: dict[str, int] = {}
         self.capture_ms = 0.0
+        self._done = None  # recorded after the last replay's clones
 
     def __call__(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        STATS[f"{self.stat}_calls"] += 1
         if self.device.type != "cuda":
+            # Eager: no shared buffers, so only the count needs the lock.
+            with _LOCK:
+                STATS[f"{self.stat}_calls"] += 1
             return self.fn(inputs)
-        if self.graph is None:
-            self._capture(inputs)
-        for name, t in inputs.items():
-            self.static_in[name].copy_(t, non_blocking=True)
-        with torch.cuda.device(self.device), _sync_debug(REPLAY_SYNC_DEBUG):
-            self.graph.replay()
-            out = {k: v.clone() for k, v in self.static_out.items()}
-        for name, n in self.launches.items():
-            ops.LAUNCHES[name] += n
-        return out
+        with _LOCK:
+            STATS[f"{self.stat}_calls"] += 1
+            if self.graph is None:
+                self._capture(inputs)
+            with torch.cuda.device(self.device), _sync_debug(REPLAY_SYNC_DEBUG):
+                stream = torch.cuda.current_stream(self.device)
+                if self._done is not None:
+                    stream.wait_event(self._done)
+                for name, t in inputs.items():
+                    self.static_in[name].copy_(t, non_blocking=True)
+                self.graph.replay()
+                out = {k: v.clone() for k, v in self.static_out.items()}
+                self._done = torch.cuda.Event()
+                self._done.record(stream)
+            ops.add_launches(self.launches)
+            return out
 
     def _capture(self, inputs) -> None:
         t0 = time.perf_counter()
@@ -352,14 +399,18 @@ class Graphed:
                     a = torch.ones(8, 8, device=self.device)
                     (a @ a).sum()
             stream.synchronize()
-            before = dict(ops.LAUNCHES)
             graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph, stream=stream):
-                    out = self.fn(self.static_in)
-            finally:
-                self.launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
-                ops.LAUNCHES.update(before)
+            # The lock orders this capture against every other capture and
+            # replay. Other threads may still work on the card outside any
+            # graph meanwhile (the event engine's runs, pinned host inputs,
+            # certificates), on their own streams, which the capture stream
+            # does not wait on. "thread_local" checks only this thread's
+            # calls; the default, "global", would fail this capture, and the
+            # other thread's call, on such a thread's first allocation.
+            with ops.recording_launches() as counts, torch.cuda.graph(
+                    graph, stream=stream, capture_error_mode="thread_local"):
+                out = self.fn(self.static_in)
+            self.launches = dict(counts)
             torch.cuda.synchronize(self.device)
         self.graph, self.static_out = graph, out
         self.capture_ms = (time.perf_counter() - t0) * 1e3
@@ -371,32 +422,41 @@ _CACHE_SIZE = 16
 
 def clear_cache() -> None:
     """Drop every captured graph (and the device memory their pools hold)."""
-    _CACHE.clear()
+    with _LOCK:
+        _CACHE.clear()
+
+
+def cache_key(key: tuple, tensors) -> tuple:
+    """The key :func:`_compiled` files a run under: ``key`` and the identity
+    (address, shape, dtype, device) of the tensors its graph reads in place."""
+    return key + tuple((t.data_ptr(), tuple(t.shape), t.dtype, str(t.device))
+                       for t in tensors)
 
 
 def _compiled(key: tuple, tensors, make) -> Graphed:
     """The cached run for ``key`` (``tensors``: the device tensors a graph
     reads in place, such as ``X``; the entry dies with them), or a new one
     from ``make()``, counted as one trace."""
-    full_key = key + tuple((t.data_ptr(), tuple(t.shape), t.dtype, str(t.device))
-                           for t in tensors)
-    hit = _CACHE.get(full_key)
-    if hit is not None and all(r() is not None for r in hit[0]):
-        _CACHE.move_to_end(full_key)
-        return hit[1]
-    entry = make()
-    STATS[f"{entry.stat}_traces"] += 1
-    _CACHE[full_key] = ([weakref.ref(t) for t in tensors], entry)
-    while len(_CACHE) > _CACHE_SIZE:
-        _CACHE.popitem(last=False)
-    return entry
+    full_key = cache_key(key, tensors)
+    with _LOCK:
+        hit = _CACHE.get(full_key)
+        if hit is not None and all(r() is not None for r in hit[0]):
+            _CACHE.move_to_end(full_key)
+            return hit[1]
+        entry = make()
+        STATS[f"{entry.stat}_traces"] += 1
+        _CACHE[full_key] = ([weakref.ref(t) for t in tensors], entry)
+        while len(_CACHE) > _CACHE_SIZE:
+            _CACHE.popitem(last=False)
+        return entry
 
 
 def last_graph(stat: str) -> Graphed | None:
     """The most recently used cached run of kind ``stat`` (measurements)."""
-    for _, entry in reversed(_CACHE.values()):
-        if entry.stat == stat:
-            return entry
+    with _LOCK:
+        for _, entry in reversed(_CACHE.values()):
+            if entry.stat == stat:
+                return entry
     return None
 
 
@@ -537,11 +597,16 @@ def lockstep_draw(draws, key, solver, problem, norms_sq, sigma_p: float, *,
     return key, slots
 
 
-def lockstep_body(problem, solver, sigma_p: float, *, length: int, evals, gap=False):
+def lockstep_body(problem, solver, *, length: int, n_slots: int = 0, evals=(),
+                  gap: bool = False):
     """The lockstep rounds as a plain torch function of ``inputs``: ``w``,
-    ``alpha`` (the carry), ``orders_<slot> (R, K, h)``, ``gamma``, ``y``,
-    ``norms_sq`` (and ``gap_target`` with ``gap``: the in-graph certificate
-    with compute-and-mask, see :func:`gap_floor_f32`)."""
+    ``alpha`` (the carry), ``orders_<slot> (R, K, h)``, ``gamma``, ``sigma``
+    (sigma', 0-dim float32, which the kernel reads per row), ``y``,
+    ``norms_sq``, and ``eval_slot (R,)``: the snapshot row each round's
+    ``(w, alpha)`` lands in (``n_slots`` rows and a discard row). With
+    ``gap``, the eval rounds ``evals`` are fixed and carry the in-graph
+    certificate with compute-and-mask (and ``gap_target``, see
+    :func:`gap_floor_f32`)."""
     K, n_k, d = problem.X.shape
     X, lam, loss, n = problem.X, problem.lam, problem.loss, problem.n
     evals = set(evals)
@@ -549,14 +614,18 @@ def lockstep_body(problem, solver, sigma_p: float, *, length: int, evals, gap=Fa
     def fn(inp):
         w, alpha, gamma = inp["w"], inp["alpha"], inp["gamma"]
         y, norms_sq = inp["y"], inp["norms_sq"]
+        sigma = inp["sigma"].expand(K).contiguous()
         slots = sorted(k for k in inp if k.startswith("orders_"))
-        ws, alphas, certs, dones = [], [], [], []
+        certs, dones = [], []
         done = torch.zeros((), dtype=torch.bool, device=X.device)
+        if not gap:
+            ws = _snapshot_buffer(n_slots, (d,), w)
+            alphas = _snapshot_buffer(n_slots, (K, n_k), alpha)
         for r in range(length):
             orders = [inp[s][r] for s in slots]
 
             def solve(w_all, a):
-                return solver.solve(orders, w_all, a, X, y, norms_sq, lam, n, sigma_p,
+                return solver.solve(orders, w_all, a, X, y, norms_sq, lam, n, sigma,
                                     loss=loss)
 
             w_new, alpha_new = engine.lockstep_round(w, alpha, gamma, solve)
@@ -571,25 +640,22 @@ def lockstep_body(problem, solver, sigma_p: float, *, length: int, evals, gap=Fa
                 dones.append(done)
             else:
                 w, alpha = w_new, alpha_new
-                if r in evals:
-                    ws.append(w)
-                    alphas.append(alpha)
+                at = inp["eval_slot"][r:r + 1]
+                ws.index_copy_(0, at, w[None])
+                alphas.index_copy_(0, at, alpha[None])
         out = {"w": w, "alpha": alpha}
         if gap:
             out["certs"] = torch.stack(certs) if certs else torch.zeros((0, 4), device=X.device)
             out["done"] = torch.stack(dones)
         else:
-            out["eval_ws"] = (torch.stack(ws) if ws
-                              else torch.zeros((0, d), dtype=X.dtype, device=X.device))
-            out["eval_alphas"] = (torch.stack(alphas) if alphas else
-                                  torch.zeros((0, K, n_k), dtype=X.dtype, device=X.device))
+            out["eval_ws"], out["eval_alphas"] = ws[:n_slots], alphas[:n_slots]
         return out
 
     return fn
 
 
 def _lockstep_inputs(problem, method, norms_sq, draws, key, sigma_p, R, *, w=None,
-                     alpha=None):
+                     alpha=None, evals=()):
     K, n_k, d = problem.X.shape
     dev, dt = problem.X.device, problem.X.dtype
     solver = lockstep_solver(method)
@@ -599,16 +665,17 @@ def _lockstep_inputs(problem, method, norms_sq, draws, key, sigma_p, R, *, w=Non
            "alpha": (torch.zeros((K, n_k), dtype=dt, device=dev) if alpha is None
                      else alpha),
            "gamma": host_input(method.gamma, torch.float32, dev),
+           "sigma": host_input(sigma_p, torch.float32, dev),
+           "eval_slot": _slot_input(R, evals, dev),
            "y": problem.y, "norms_sq": norms_sq}
     for s, o in enumerate(slots):
         inp[f"orders_{s}"] = o
     return key, solver, inp
 
 
-def _lockstep_key(kind, problem, method, sigma_p, R, evals):
+def _lockstep_key(kind, problem, method, R, evals):
     return (kind, str(problem.X.device), tuple(problem.X.shape), problem.loss, method.H,
-            solver_name(method), R, tuple(evals), lam_n_f32(problem.lam, problem.n),
-            float(sigma_p))
+            solver_name(method), R, evals, lam_n_f32(problem.lam, problem.n))
 
 
 def _run_lockstep(problem, method, cluster, *, num_outer, seed, eval_every, norms_sq,
@@ -620,16 +687,18 @@ def _run_lockstep(problem, method, cluster, *, num_outer, seed, eval_every, norm
     rounds = lockstep_accounts(method, cluster, d, num_rounds=R, seed=seed)
     sigma_p = method.resolved_sigma_prime(K)
     evals = _eval_indices(R, eval_every)
-    _, solver, inp = _lockstep_inputs(problem, method, norms_sq, draws, key, sigma_p, R)
-    run = _compiled(_lockstep_key("lockstep", problem, method, sigma_p, R, evals),
-                    [problem.X],
-                    lambda: Graphed(lockstep_body(problem, solver, sigma_p, length=R,
-                                                  evals=evals),
+    n_slots = eval_slots(evals)
+    _, solver, inp = _lockstep_inputs(problem, method, norms_sq, draws, key, sigma_p, R,
+                                      evals=evals)
+    run = _compiled(_lockstep_key("lockstep", problem, method, R, n_slots), [problem.X],
+                    lambda: Graphed(lockstep_body(problem, solver, length=R,
+                                                  n_slots=n_slots),
                                     problem.X.device, "lockstep",
                                     _prepare_kernel(problem, [K])))
     out = run(inp)
-    return ScanRun(method, rounds, evals, out["eval_ws"], out["eval_alphas"], out["w"],
-                   out["alpha"])
+    E = len(evals)
+    return ScanRun(method, rounds, evals, out["eval_ws"][:E], out["eval_alphas"][:E],
+                   out["w"], out["alpha"])
 
 
 def gap_floor_f32(target_gap: float) -> np.float32:
@@ -656,9 +725,9 @@ def _run_lockstep_gap(problem, method, cluster, *, num_outer, seed, eval_every, 
     _, solver, inp = _lockstep_inputs(problem, method, norms_sq, draws, key, sigma_p, R)
     inp["gap_target"] = host_input(gap_floor_f32(target_gap), torch.float32,
                                    problem.X.device)
-    run = _compiled(_lockstep_key("lockstep_gap", problem, method, sigma_p, R, evals),
+    run = _compiled(_lockstep_key("lockstep_gap", problem, method, R, tuple(evals)),
                     [problem.X],
-                    lambda: Graphed(lockstep_body(problem, solver, sigma_p, length=R,
+                    lambda: Graphed(lockstep_body(problem, solver, length=R,
                                                   evals=evals, gap=True),
                                     problem.X.device, "lockstep_gap",
                                     _prepare_kernel(problem, [K])))
@@ -742,11 +811,14 @@ class QueueRun:
     ``arrival (K, C)`` float64, ``seq (K, C)``, ``harvested``), LAG's window
     and the accounting totals (float64 / int64 scalars). ``C`` is 1 for lag.
     The launch and server steps are the event engine's op sequences; the
-    arrival counts and sequence numbers are host-known and fixed.
+    arrival counts and sequence numbers are host-known and fixed. sigma'
+    (``inp["sigma"]``) is read by the kernel per row; each round's snapshot
+    lands in row ``inp["eval_slot"][r]`` of ``n_slots`` rows (and a discard
+    row).
     """
 
-    def __init__(self, problem, method, inp, *, chunk_steps, needs, comp, sigma_p,
-                 lag: bool):
+    def __init__(self, problem, method, inp, *, chunk_steps, needs, comp, lag: bool,
+                 n_slots: int):
         K, n_k, d = problem.X.shape
         dev, dt = problem.X.device, problem.X.dtype
         f64, i64 = torch.float64, torch.int64
@@ -756,8 +828,8 @@ class QueueRun:
         self.norms_sq = inp["norms_sq"]
         self.inp = inp
         self.chunk_steps, self.needs, self.comp = chunk_steps, needs, comp
-        self.sigma_p, self.lag = sigma_p, lag
-        self.gamma = inp["gamma"]
+        self.lag, self.n_slots = lag, n_slots
+        self.gamma, self.sigma = inp["gamma"], inp["sigma"]
         self.dense = isinstance(comp, compress_lib.Dense)
         self.up_bytes = comp.wire_bytes(d)
         self.w_server = torch.zeros((d,), dtype=dt, device=dev)
@@ -783,7 +855,8 @@ class QueueRun:
         self.seq_ctr = 0
         self.wave = 0
         self.trail: list = []
-        self.snapshots: list = []
+        self.eval_w = _snapshot_buffer(n_slots, (d,), self.w_server)
+        self.eval_alpha = _snapshot_buffer(n_slots, (K, n_k), self.alpha)
         self._round = None
 
     # -- the launch wave ------------------------------------------------------
@@ -810,7 +883,7 @@ class QueueRun:
             if solved is None:
                 a_c, dw, sent, res = engine.group_local_rounds(
                     self.w_local, self.alpha, res, widx, wmap, idx, self.problem,
-                    self.norms_sq, self.problem.n, self.sigma_p, self.gamma, self.comp,
+                    self.norms_sq, self.problem.n, self.sigma, self.gamma, self.comp,
                     map_error=self.map_error)
             else:
                 a_c, dw, sent, res = solved
@@ -907,36 +980,31 @@ class QueueRun:
         self._round = (server_time, count)
         return widx, need, server_time + down, (rbytes, down)
 
-    def record(self, r: int, evals) -> None:
-        """Keep round ``r``'s accounting totals (and its snapshot at an eval
-        round) after its wave launched."""
+    def record(self, r: int) -> None:
+        """Keep round ``r``'s accounting totals and its snapshot (in its slot)
+        after its wave launched."""
         server_time, count = self._round
         self.trail.append((server_time, self.bytes_up, self.bytes_down, self.compute_t,
                            self.comm_t, count))
-        if r in evals:
-            self.snapshots.append((self.w_server, self.alpha_applied))
+        at = self.inp["eval_slot"][r:r + 1]
+        self.eval_w.index_copy_(0, at, self.w_server[None])
+        self.eval_alpha.index_copy_(0, at, self.alpha_applied[None])
 
-    def run(self, R: int, evals) -> dict[str, torch.Tensor]:
-        evals = set(evals)
+    def run(self, R: int) -> dict[str, torch.Tensor]:
         self.launch(*self.first_wave())
         for r in range(R):
             self.launch(*self.server(r))
-            self.record(r, evals)
+            self.record(r)
         return self.outputs()
 
     def outputs(self) -> dict[str, torch.Tensor]:
-        K, n_k, d = self.K, self.n_k, self.d
-        dev, dt = self.alpha.device, self.alpha.dtype
         sims, bus, bds, cts, cms, counts = zip(*self.trail)
-        ws = [w for w, _ in self.snapshots]
-        alphas = [a for _, a in self.snapshots]
         out = {"w": self.w_server, "alpha": self.alpha, "alpha_applied": self.alpha_applied,
                "sim": torch.stack(sims), "bytes_up": torch.stack(bus),
                "bytes_down": torch.stack(bds), "compute": torch.stack(cts),
                "comm": torch.stack(cms), "map_error": self.map_error,
-               "eval_ws": torch.stack(ws) if ws else torch.zeros((0, d), dtype=dt, device=dev),
-               "eval_alphas": (torch.stack(alphas) if alphas
-                               else torch.zeros((0, K, n_k), dtype=dt, device=dev))}
+               "eval_ws": self.eval_w[:self.n_slots],
+               "eval_alphas": self.eval_alpha[:self.n_slots]}
         if counts[0] is not None:
             out["harvested"] = torch.stack(counts)
         return out
@@ -955,7 +1023,7 @@ def queue_accounts(out, needs, T: int) -> list[RoundAccount]:
 
 
 def queue_inputs(problem, method, cluster, norms_sq, draws, key, *, R, seed, needs,
-                 chunk_steps, xi=True):
+                 chunk_steps, evals, xi=True):
     """The per-run inputs of a queue run (host work, before the graph)."""
     dev = problem.X.device
     K = problem.X.shape[0]
@@ -970,6 +1038,8 @@ def queue_inputs(problem, method, cluster, norms_sq, draws, key, *, R, seed, nee
            "latency": host_input(cluster.latency, f64, dev),
            "bandwidth": host_input(cluster.bandwidth, f64, dev),
            "gamma": host_input(method.gamma, f32, dev),
+           "sigma": host_input(method.resolved_sigma_prime(K), f32, dev),
+           "eval_slot": _slot_input(R, evals, dev),
            "y": problem.y, "norms_sq": norms_sq}
     if xi:
         inp["xi"] = host_input(method.lag_xi, f32, dev)
@@ -978,10 +1048,10 @@ def queue_inputs(problem, method, cluster, norms_sq, draws, key, *, R, seed, nee
     return inp
 
 
-def _queue_key(kind, problem, method, comp, sigma_p, needs, evals, chunk_steps):
+def _queue_key(kind, problem, method, comp, needs, n_slots, chunk_steps):
     return (kind, str(problem.X.device), tuple(problem.X.shape), problem.loss,
-            chunk_steps, comp, needs, tuple(evals), method.lag_window,
-            lam_n_f32(problem.lam, problem.n), float(sigma_p))
+            chunk_steps, comp, needs, n_slots, method.lag_window,
+            lam_n_f32(problem.lam, problem.n))
 
 
 def _run_queue(problem, method, cluster, *, num_outer, seed, eval_every, norms_sq,
@@ -994,25 +1064,26 @@ def _run_queue(problem, method, cluster, *, num_outer, seed, eval_every, norms_s
     chunk_steps = ((method.H,) if lag else engine.chunk_steps(method.H, method.n_chunks))
     needs = lag_needs(method, K, R)
     comp = compress_lib.for_method(method, d)
-    sigma_p = method.resolved_sigma_prime(K)
     evals = _eval_indices(R, eval_every)
+    n_slots = eval_slots(evals)
     inp = queue_inputs(problem, method, cluster, norms_sq, draws, key, R=R, seed=seed,
-                       needs=needs, chunk_steps=chunk_steps, xi=lag)
+                       needs=needs, chunk_steps=chunk_steps, evals=evals, xi=lag)
     stat = "lag" if lag else "partial"
 
     def body(inp):
         return QueueRun(problem, method, inp, chunk_steps=chunk_steps, needs=needs,
-                        comp=comp, sigma_p=sigma_p, lag=lag).run(R, evals)
+                        comp=comp, lag=lag, n_slots=n_slots).run(R)
 
-    run = _compiled(_queue_key(stat, problem, method, comp, sigma_p, needs, evals,
-                               chunk_steps), [problem.X],
+    run = _compiled(_queue_key(stat, problem, method, comp, needs, n_slots, chunk_steps),
+                    [problem.X],
                     lambda: Graphed(body, problem.X.device, stat,
                                     _prepare_kernel(problem, (K,) + needs)))
     out = run(inp)
     sdca_kernel.raise_map_error(out["map_error"].cpu(), K)
     rounds = queue_accounts(out, needs, T)
-    return ScanRun(method, rounds, evals, out["eval_ws"], out["eval_alphas"], out["w"],
-                   out["alpha"], alpha_applied=out["alpha_applied"])
+    E = len(evals)
+    return ScanRun(method, rounds, evals, out["eval_ws"][:E], out["eval_alphas"][:E],
+                   out["w"], out["alpha"], alpha_applied=out["alpha_applied"])
 
 
 # ---------------------------------------------------------------------------
@@ -1167,15 +1238,16 @@ def run_lockstep_checkpointed(problem, method: MethodConfig, cluster: ClusterMod
             segment_hook(start)
         length = min(checkpoint_every, R - start)
         seg_evals = [e - start for e in evals if start <= e < start + length]
-        key, solver, inp = _lockstep_inputs(problem, method, norms_sq, draws, key, sigma_p,
-                                            length, w=w, alpha=alpha)
         # A segment keeps every round's state, so segments of one length share
         # a graph whatever their eval rounds; the snapshots are picked after.
         every = list(range(length))
-        run = _compiled(_lockstep_key("lockstep_segment", problem, method, sigma_p,
-                                      length, every), [problem.X],
-                        lambda: Graphed(lockstep_body(problem, solver, sigma_p,
-                                                      length=length, evals=every),
+        key, solver, inp = _lockstep_inputs(problem, method, norms_sq, draws, key, sigma_p,
+                                            length, w=w, alpha=alpha, evals=every)
+        n_slots = eval_slots(every)
+        run = _compiled(_lockstep_key("lockstep_segment", problem, method, length,
+                                      n_slots), [problem.X],
+                        lambda: Graphed(lockstep_body(problem, solver, length=length,
+                                                      n_slots=n_slots),
                                         dev, "lockstep_segment",
                                         _prepare_kernel(problem, [K])))
         out = run(inp)

@@ -52,9 +52,13 @@ class LocalSolver:
     ``draw(keys, draws, *, n_k, num_steps, norms_sq, lam, n_global,
     sigma_prime, device)`` returns the list of int32 order tensors the solve
     consumes; ``solve(orders, w_all, alpha, X, y, norms_sq, lam, n_global,
-    sigma_prime, *, loss, cells=1, map_error=None)`` runs on them. With
-    ``cells`` V > 1, ``w_all`` and ``alpha`` hold ``V * K`` rows (variant
-    major), ``sigma_prime`` is a ``(V * K,)`` float32 tensor, and each
+    sigma_prime, *, loss, cells=1, map_error=None)`` runs on them.
+    ``sigma_prime`` is a float, or a float32 tensor on the problem's device
+    (0-dim or one sigma' per batch row); either way the kernel reads it per
+    row (the event engine, the whole-run executor's graphs and the sweeps
+    pass a tensor).
+    With ``cells`` V > 1, ``w_all`` and ``alpha`` hold ``V * K`` rows
+    (variant major), ``sigma_prime`` is a ``(V * K,)`` tensor, and each
     launch is one kernel launch of all the rows over the shared ``X``.
     """
 
@@ -63,7 +67,7 @@ class LocalSolver:
         self.solve = solve
 
     def __call__(self, w_all, alpha, X, y, norms_sq, lam: float, n_global: int,
-                 sigma_prime: float, keys, draws, *, loss: LossName,
+                 sigma_prime: float | torch.Tensor, keys, draws, *, loss: LossName,
                  num_steps: int) -> LocalSolveResult:
         orders = self.draw(keys, draws, n_k=X.shape[1], num_steps=num_steps,
                            norms_sq=norms_sq, lam=lam, n_global=n_global,
@@ -72,22 +76,26 @@ class LocalSolver:
                           sigma_prime, loss=loss)
 
 
-def _rows(X, cells: int, sigma_prime, map_error) -> dict:
-    """The kernel's row options for ``cells`` variants stacked over ``X``."""
-    if cells == 1:
-        return {}
-    K = X.shape[0]
-    workers = torch.arange(K, dtype=torch.int32, device=X.device).repeat(cells)
-    return dict(workers=workers, map_error=map_error, alpha_rows=True,
-                sigma_rows=sigma_prime)
+def _rows(X, B: int, cells: int, sigma_prime, map_error) -> dict:
+    """The kernel's row options for ``B`` batch rows: sigma' per row, and
+    for ``cells`` variants stacked over ``X`` the worker map and ``alpha``
+    per row."""
+    sigma = torch.as_tensor(sigma_prime, dtype=torch.float32, device=X.device)
+    rows = {"sigma_rows": sigma.expand(B).contiguous()}
+    if cells > 1:
+        K = X.shape[0]
+        rows.update(workers=torch.arange(K, dtype=torch.int32, device=X.device).repeat(cells),
+                    map_error=map_error, alpha_rows=True)
+    return rows
 
 
 def _solve_once(orders, w_all, alpha, X, y, norms_sq, lam, n_global, sigma_prime, *,
                 loss, cells=1, map_error=None) -> LocalSolveResult:
     """One launch on the single order tensor of ``sdca`` / ``importance``."""
-    return solve_subproblem_all_indices(w_all, alpha, X, y, norms_sq, lam, n_global,
-                                        sigma_prime if cells == 1 else 0.0, orders[0],
-                                        loss=loss, **_rows(X, cells, sigma_prime, map_error))
+    return solve_subproblem_all_indices(w_all, alpha, X, y, norms_sq, lam, n_global, 0.0,
+                                        orders[0], loss=loss,
+                                        **_rows(X, w_all.shape[0], cells, sigma_prime,
+                                                map_error))
 
 
 def _draw_uniform(keys, draws, *, n_k, num_steps, device, **_):
@@ -102,7 +110,7 @@ def _draw_importance(keys, draws, *, n_k, num_steps, norms_sq, lam, n_global,
 
 
 def solve_subproblem_sdca(w_all, alpha, X, y, norms_sq, lam: float, n_global: int,
-                          sigma_prime: float, keys, draws, *, loss: LossName,
+                          sigma_prime: float | torch.Tensor, keys, draws, *, loss: LossName,
                           num_steps: int) -> LocalSolveResult:
     """H sequential SDCA steps with uniform sampling, every worker of the batch."""
     return SDCA(w_all, alpha, X, y, norms_sq, lam, n_global, sigma_prime, keys, draws,
@@ -110,7 +118,7 @@ def solve_subproblem_sdca(w_all, alpha, X, y, norms_sq, lam: float, n_global: in
 
 
 def solve_subproblem_importance(w_all, alpha, X, y, norms_sq, lam: float,
-                                n_global: int, sigma_prime: float, keys, draws, *,
+                                n_global: int, sigma_prime: float | torch.Tensor, keys, draws, *,
                                 loss: LossName, num_steps: int) -> LocalSolveResult:
     """SDCA with smoothness-proportional (importance) sampling."""
     return IMPORTANCE(w_all, alpha, X, y, norms_sq, lam, n_global, sigma_prime, keys,
@@ -131,8 +139,8 @@ def _draw_accelerated(keys, draws, *, n_k, num_steps, device, num_rounds=ACCEL_R
 def _solve_accelerated(orders, w_all, alpha, X, y, norms_sq, lam, n_global, sigma_prime,
                        *, loss, cells=1, map_error=None, beta=ACCEL_BETA):
     K, n_k, d = X.shape
-    rows = _rows(X, cells, sigma_prime, map_error)
-    sigma = sigma_prime if cells == 1 else sigma_prime[:, None]
+    rows = _rows(X, w_all.shape[0], cells, sigma_prime, map_error)
+    sigma = rows["sigma_rows"][:, None]
     dalpha_prev = torch.zeros_like(alpha)
     dalpha = torch.zeros_like(alpha)
     v = torch.zeros_like(w_all)
@@ -147,14 +155,14 @@ def _solve_accelerated(orders, w_all, alpha, X, y, norms_sq, lam, n_global, sigm
                                   momentum.view(cells, K, n_k)).reshape(cells * K, d)
             v_y = v + xm / lam_n_f32(lam, n_global)
         res = solve_subproblem_all_indices(
-            w_all + sigma * v_y, alpha + da_y, X, y, norms_sq, lam, n_global,
-            sigma_prime if cells == 1 else 0.0, idx, loss=loss, **rows)
+            w_all + sigma * v_y, alpha + da_y, X, y, norms_sq, lam, n_global, 0.0, idx,
+            loss=loss, **rows)
         dalpha_prev, dalpha, v = dalpha, da_y + res.delta_alpha, v_y + res.v
     return LocalSolveResult(dalpha, v)
 
 
 def solve_subproblem_accelerated(w_all, alpha, X, y, norms_sq, lam: float,
-                                 n_global: int, sigma_prime: float, keys, draws, *,
+                                 n_global: int, sigma_prime: float | torch.Tensor, keys, draws, *,
                                  loss: LossName, num_steps: int,
                                  num_rounds: int = ACCEL_ROUNDS,
                                  beta: float = ACCEL_BETA) -> LocalSolveResult:

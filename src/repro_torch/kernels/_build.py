@@ -7,6 +7,8 @@ library under ``repro_torch/_build/``, named by the hash of its source so a
 changed source is rebuilt, and loaded with :mod:`ctypes`. A failed build
 raises with the compiler's output. Nothing is built when a module is
 imported: the CPU tests import every module and there is no ``nvcc`` there.
+Building and loading hold one lock, so threads that first call a kernel at
+once build it once and load one library.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
@@ -24,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()
 
 
 class KernelBuildError(RuntimeError):
@@ -72,26 +76,31 @@ def _finish(name: str, job) -> None:
 
 def build(*names: str) -> None:
     """Compile the named sources that are not built yet, all nvcc at once."""
-    jobs = {n: _start(n) for n in names}
-    try:
-        for n, job in jobs.items():
-            if job is not None:
-                _finish(n, job)
-    finally:
-        for job in jobs.values():
-            if job is not None and job[2].poll() is None:
-                job[2].kill()
-                job[2].wait()
+    with _LOCK:
+        jobs = {n: _start(n) for n in names}
+        try:
+            for n, job in jobs.items():
+                if job is not None:
+                    _finish(n, job)
+        finally:
+            for job in jobs.values():
+                if job is not None and job[2].poll() is None:
+                    job[2].kill()
+                    job[2].wait()
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     lib = _LOADED.get(name)
-    if lib is None:
-        build(name)
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LOADED[name] = lib
-    return lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build(name)
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LOADED[name] = lib
+        return lib
 
 
 def check(lib: ctypes.CDLL, name: str, code: int, what: str) -> None:

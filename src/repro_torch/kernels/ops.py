@@ -7,9 +7,17 @@ switches path, no flag that turns a kernel off, no ``try`` that gives way.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
 card, so that a run can show that its main path went through the kernels.
+Its updates are safe from any thread (the experiment service launches from
+several). A thread that records a CUDA graph counts its launches apart
+(:func:`recording_launches`): they run when the graph replays, and the
+replay adds them (:func:`add_launches`), so another thread's launches that
+happen meanwhile are neither lost nor taken for the graph's.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -20,11 +28,43 @@ from repro_torch.kernels.topk_filter import topk_filter_cuda, topk_filter_plain
 
 LAUNCHES: dict[str, int] = {"sdca_inner": 0, "topk_filter": 0,
                              "flash_attention_fwd": 0}
+_LAUNCH_LOCK = threading.Lock()
+_RECORDING = threading.local()  # .counts: this thread's launches into a graph
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` to ``LAUNCHES`` (a graph replay's launches)."""
+    with _LAUNCH_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+
+
+def _count(name: str) -> None:
+    recording = getattr(_RECORDING, "counts", None)
+    if recording is not None:
+        recording[name] += 1
+        return
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Count this thread's launches into the yielded dict instead of
+    ``LAUNCHES`` (a stream capture: they run only when the graph replays)."""
+    prev = getattr(_RECORDING, "counts", None)
+    counts = dict.fromkeys(LAUNCHES, 0)
+    _RECORDING.counts = counts
+    try:
+        yield counts
+    finally:
+        _RECORDING.counts = prev
 
 
 def topk_filter(dw: torch.Tensor, k: int):
@@ -35,7 +75,7 @@ def topk_filter(dw: torch.Tensor, k: int):
     """
     if dw.is_cuda:
         out = topk_filter_cuda(dw, k)
-        LAUNCHES["topk_filter"] += 1
+        _count("topk_filter")
         return out
     return topk_filter_plain(dw, k)
 
@@ -64,7 +104,7 @@ def sdca_epoch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
                               sigma_prime, idx, loss=loss, workers=workers,
                               map_error=map_error, alpha_rows=alpha_rows,
                               sigma_rows=sigma_rows)
-        LAUNCHES["sdca_inner"] += 1
+        _count("sdca_inner")
         return out
     return ref.sdca_inner_ref(w_eff, alpha, X, y, norms_sq, lam, n_global,
                               sigma_prime, idx, loss=loss, workers=workers,
@@ -81,6 +121,6 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: float | None 
     """
     if q.is_cuda:
         out = flash_attention_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale)
-        LAUNCHES["flash_attention_fwd"] += 1
+        _count("flash_attention_fwd")
         return out
     return ref.flash_attention_fwd_ref(q, k, v, causal=causal, sm_scale=sm_scale)

@@ -38,12 +38,18 @@ variants of a sweep, ``V * K`` batch rows): ``alpha_rows=True`` reads
 ``alpha (B, n_k)`` at batch row b instead of at the worker, and
 ``sigma_rows (B,)``, a float32 tensor on the card, gives each row its own
 sigma'.
+
+The library keeps per-process state: the kernels' attributes, which the
+plan's occupancy queries set and reset. Every call into it holds
+``_C_LOCK``, so a plan computed on one thread never changes the attributes
+under another thread's launch, and a plan is read only once it is whole.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -52,11 +58,14 @@ from repro_torch.kernels import _build
 
 NAME = "sdca_inner"
 LOSSES = {"ridge": 0, "smoothed_hinge": 1, "logistic": 2}
+_C_LOCK = threading.RLock()
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
-    if not getattr(lib, "_typed", False):
+    if getattr(lib, "_typed", False):
+        return lib
+    with _C_LOCK:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdca_inner_launch.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, p, i, i, i, i,
                                           f, f, i, i, i, i, p]
@@ -75,7 +84,8 @@ def _lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _max_d(device: int, n_k: int) -> int:
-    return int(_lib().sdca_inner_max_d(n_k))
+    with _C_LOCK:
+        return int(_lib().sdca_inner_max_d(n_k))
 
 
 def max_d(n_k: int) -> int:
@@ -87,8 +97,9 @@ def max_d(n_k: int) -> int:
 def _plan(device: int, K: int, n_k: int, d: int, cluster: int) -> tuple[int, ...]:
     out = (ctypes.c_int * 5)()
     lib = _lib()
-    _build.check(lib, NAME, lib.sdca_inner_plan(K, n_k, d, cluster, out),
-                 "sdca_inner plan")
+    with _C_LOCK:
+        code = lib.sdca_inner_plan(K, n_k, d, cluster, out)
+    _build.check(lib, NAME, code, "sdca_inner plan")
     return tuple(out)
 
 
@@ -127,9 +138,10 @@ def prepare(loss: str, B: int, n_k: int, d: int) -> dict[str, int]:
     if p["cluster"] == 0:
         raise ValueError(f"sdca_inner: no cluster takes B = {B}, n_k = {n_k}, d = {d}")
     lib = _lib()
-    _build.check(lib, NAME, lib.sdca_inner_prepare(LOSSES[loss], p["cluster"], p["stages"],
-                                                   p["per_thread"], n_k),
-                 "sdca_inner prepare")
+    with _C_LOCK:
+        code = lib.sdca_inner_prepare(LOSSES[loss], p["cluster"], p["stages"],
+                                      p["per_thread"], n_k)
+    _build.check(lib, NAME, code, "sdca_inner prepare")
     max_d(n_k)
     return p
 
@@ -248,14 +260,15 @@ def _launch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int, sigma_prime
         v = torch.empty((B, d), dtype=torch.float32, device=X.device)
         stream = torch.cuda.current_stream(X.device).cuda_stream
         lib = _lib()
-        code = lib.sdca_inner_launch(
-            w_eff.data_ptr(), alpha.data_ptr(), X.data_ptr(), y.data_ptr(),
-            norms_sq.data_ptr(), idx.data_ptr(), None if wmap is None else wmap.data_ptr(),
-            K, int(alpha_rows), None if sigma_rows is None else sigma_rows.data_ptr(),
-            None if map_error is None else map_error.data_ptr(),
-            dalpha.data_ptr(), v.data_ptr(), B, n_k, d, idx.shape[1],
-            lam_n_f32(lam, n_global), float(sigma_prime), LOSSES[loss], p["cluster"],
-            p["stages"], p["per_thread"], stream)
+        with _C_LOCK:
+            code = lib.sdca_inner_launch(
+                w_eff.data_ptr(), alpha.data_ptr(), X.data_ptr(), y.data_ptr(),
+                norms_sq.data_ptr(), idx.data_ptr(), None if wmap is None else wmap.data_ptr(),
+                K, int(alpha_rows), None if sigma_rows is None else sigma_rows.data_ptr(),
+                None if map_error is None else map_error.data_ptr(),
+                dalpha.data_ptr(), v.data_ptr(), B, n_k, d, idx.shape[1],
+                lam_n_f32(lam, n_global), float(sigma_prime), LOSSES[loss], p["cluster"],
+                p["stages"], p["per_thread"], stream)
     _build.check(lib, NAME, code, "sdca_inner launch")
     return dalpha, v
 

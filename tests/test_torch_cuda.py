@@ -529,3 +529,164 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     k_off = kb.flatten()[4:4 + 16 * 2 * 16].view(1, 16, 2, 16)  # starts 8 bytes in
     with pytest.raises(ValueError, match="16-byte"):
         ops.flash_attention_fwd(qb[:, :16], k_off, vb[:, :16])
+
+
+# ---------------------------------------------------------------------------
+# The graph cache under the experiment service's threads, and its keys.
+# ---------------------------------------------------------------------------
+
+
+def _service_problem(device):
+    return problems.rcv1_like(K=4, d=512, n_per_worker=64, device=device)
+
+
+def _solo_scan(problem, method, cell, num_outer):
+    from repro_torch.api.session import Session
+
+    m = dataclasses_replace(method, gamma=cell.gamma, sigma_prime=cell.sigma_prime)
+    return Session(problem, m, cell.cluster, num_outer=num_outer, seed=cell.seed,
+                   eval_every=1, executor="scan", device=problem.X.device).run()
+
+
+def dataclasses_replace(obj, **kw):
+    import dataclasses
+
+    return dataclasses.replace(obj, **kw)
+
+
+def _cells(seeds, gammas, sigma=4.0):
+    from repro_torch.api.sweep import SweepCellSpec
+
+    return [SweepCellSpec(ClusterModel(4, straggler_sigma=sigma), s, g)
+            for s, g in zip(seeds, gammas)]
+
+
+def _same(a, b):
+    return ([r.__dict__ for r in a.records] == [r.__dict__ for r in b.records]
+            and np.array_equal(a.w, b.w) and np.array_equal(a.alpha, b.alpha))
+
+
+def test_two_threads_replay_one_sweep_graph(cuda):
+    import threading
+
+    from repro_torch.api.sweep import run_sweep_cells
+    from repro_torch.core import executor
+
+    problem = _service_problem(cuda)
+    m = baselines.cocoa_plus_solver(4, H=64)
+    executor.clear_cache()
+    run_sweep_cells(problem, m, _cells((0, 1), (0.5, 1.0)), num_outer=3, batch="map")
+    traces = executor.STATS["sweep_traces"]
+    work = {t: _cells((10 * t, 10 * t + 1), (0.25 + 0.25 * t, 1.0)) for t in range(2)}
+    want = {t: [_solo_scan(problem, m, c, 3) for c in cells] for t, cells in work.items()}
+    got, errors = {0: [], 1: []}, []
+    barrier = threading.Barrier(2)
+
+    def replay(t):
+        try:
+            barrier.wait()
+            for _ in range(6):
+                got[t].append(run_sweep_cells(problem, m, work[t], num_outer=3,
+                                              batch="map"))
+        except Exception as e:  # analysis: fail-fast-ok (re-raised on the test's thread)
+            errors.append(e)
+
+    threads = [threading.Thread(target=replay, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    assert executor.STATS["sweep_traces"] == traces
+    for t in range(2):
+        for variants in got[t]:
+            assert all(_same(v.result, w) for v, w in zip(variants, want[t]))
+
+
+def test_capture_on_one_thread_beside_an_event_run_on_another(cuda):
+    import threading
+
+    from repro_torch.api.session import Session
+    from repro_torch.api.sweep import run_sweep_cells
+    from repro_torch.core import executor
+
+    problem = _service_problem(cuda)
+    acpd_m = baselines.acpd(4, 512, B=2, T=5, rho_d=32, H=64)
+    cl = ClusterModel(4, straggler_sigma=4.0)
+    want_event = Session(problem, acpd_m, cl, num_outer=2, seed=3, executor="event",
+                         device=cuda).run()
+    lengths = (2, 3, 4, 5)
+    m = baselines.cocoa_plus(4, H=64)
+    cells = _cells((0, 1), (0.5, 1.0))
+    want_sweep = {R: [_solo_scan(problem, m, c, R) for c in cells] for R in lengths}
+    executor.clear_cache()
+    traces = executor.STATS["sweep_traces"]
+    done, errors, event_runs, sweeps = threading.Event(), [], [], {}
+
+    def events():
+        try:
+            while not done.is_set() or len(event_runs) < 2:
+                event_runs.append(Session(problem, acpd_m, cl, num_outer=2, seed=3,
+                                          executor="event", device=cuda).run())
+        except Exception as e:  # analysis: fail-fast-ok (re-raised on the test's thread)
+            errors.append(e)
+
+    th = threading.Thread(target=events)
+    th.start()
+    try:
+        for R in lengths:  # each a new signature: a capture beside the event runs
+            sweeps[R] = run_sweep_cells(problem, m, cells, num_outer=R, batch="map")
+    finally:
+        done.set()
+        th.join()
+    assert not errors, errors
+    assert executor.STATS["sweep_traces"] == traces + len(lengths)
+    assert all(_same(r, want_event) for r in event_runs)
+    for R in lengths:
+        assert all(_same(v.result, w) for v, w in zip(sweeps[R], want_sweep[R]))
+
+
+@pytest.mark.parametrize("batch", ["map", "vmap"])
+def test_waves_of_three_and_four_cells_share_one_capture(cuda, batch):
+    from repro_torch.api.sweep import run_sweep_cells
+    from repro_torch.core import executor
+
+    problem = _service_problem(cuda)
+    m = baselines.cocoa_plus_solver(4, H=64)
+    executor.clear_cache()
+    traces = executor.STATS["sweep_traces"]
+    three = _cells((0, 1, 2), (0.5, 1.0, 0.5))
+    four = _cells((5, 6, 7, 8), (0.25, 0.75, 1.0, 0.5))
+    out = [run_sweep_cells(problem, m, cells, num_outer=3, eval_every=1, batch=batch)
+           for cells in (three, four)]
+    assert executor.STATS["sweep_traces"] == traces + 1
+    for variants, cells in zip(out, (three, four)):
+        for v, c in zip(variants, cells):
+            solo = _solo_scan(problem, m, c, 3)
+            if batch == "map":
+                assert _same(v.result, solo)
+            else:
+                np.testing.assert_allclose(v.result.w, solo.w, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("protocol", ["cocoa_plus_solver", "lag"])
+def test_nan_gamma_batch_adds_no_capture(cuda, protocol):
+    import math
+
+    from repro_torch.api.sweep import run_sweep_cells
+    from repro_torch.core import executor
+
+    problem = _service_problem(cuda)
+    m = (baselines.cocoa_plus_solver(4, H=64) if protocol == "cocoa_plus_solver"
+         else baselines.acpd_lag(4, 512, B=2, T=3, rho_d=32, H=64))
+    assert m.sigma_prime is None
+    stat = "sweep_lag" if protocol == "lag" else "sweep"
+    outer = 1 if protocol == "lag" else 3
+    executor.clear_cache()
+    run_sweep_cells(problem, m, _cells((0, 1), (0.5, 1.0)), num_outer=outer, batch="map")
+    traces = executor.STATS[f"{stat}_traces"]
+    cells = _cells((2, 3), (math.nan, 0.5))
+    out = run_sweep_cells(problem, m, cells, num_outer=outer, batch="map")
+    assert executor.STATS[f"{stat}_traces"] == traces
+    assert executor.finite_certificates(out).tolist() == [False, True]
+    assert _same(out[1].result, _solo_scan(problem, m, cells[1], outer))

@@ -13,6 +13,7 @@ port is held to JAX's event executor.
 """
 
 import dataclasses
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -223,6 +224,31 @@ def test_stats_count_runs_and_traces(problems):
     assert (executor.STATS["lag_calls"], executor.STATS["lag_traces"]) == (2, 1)
     executor.reset_stats()
     assert set(executor.STATS.values()) == {0}
+
+
+def test_an_eager_run_does_not_hold_the_cache_lock():
+    """On the CPU a run is eager and has no shared buffers: while one runs
+    (say an attempt abandoned at its deadline), another thread takes the
+    lock at once; the run is still counted."""
+    started, release = threading.Event(), threading.Event()
+
+    def fn(inputs):
+        started.set()
+        release.wait(10.0)
+        return inputs
+
+    run = executor.Graphed(fn, torch.device("cpu"), "lockstep")
+    calls = executor.STATS["lockstep_calls"]
+    th = threading.Thread(target=run, args=({"x": torch.zeros(1)},))
+    th.start()
+    try:
+        assert started.wait(10.0)
+        assert executor._LOCK.acquire(timeout=1.0)
+        executor._LOCK.release()
+    finally:
+        release.set()
+        th.join()
+    assert executor.STATS["lockstep_calls"] == calls + 1
 
 
 def test_checkpointed_run_resumes_bit_for_bit(problems, tmp_path):
