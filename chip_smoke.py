@@ -36,7 +36,16 @@ checkpointed run killed and resumed, the HTTP front end, a second service
 under the ``chaos`` schedule (an overrun batch whose abandoned attempt runs
 beside the solo lane, a transient retry, a NaN-poisoned LAG cell), and two
 cluster replicas, one killed at a checkpoint segment and taken over; every
-delivered stream is held to a solo ``Session`` on the card. It also checks that
+delivered stream is held to a solo ``Session`` on the card. The training
+phases drive ``python -m repro_torch.launch.train``'s setup (codeqwen1.5-7b at
+full width, 2 layers, the ACPD grouped delta exchange, AdamW) for 12 steps
+through ``build_train_step`` (every attention layer's forward on the flash
+kernel with its log-sum-exp, the FlashAttention-2 backward in PyTorch), hold
+one step of the kernel path against the plain forward and the dense exchange
+against the plain gradient, and resume the run from its step-6 checkpoint
+bit for bit; ``kernel_flash_attention_lse`` holds the kernel's output and
+log-sum-exp against the plain version's at the serve shape and the training
+path's two shapes. It also checks that
 the bfloat16 flash kernel was compiled to tensor-core (HGMMA) and TMA
 instructions, and that one top-k filter call runs at most four kernels
 without a host sync. Launch counts are zeroed just before each path and
@@ -91,6 +100,27 @@ ENGINE_GAP_RTOL = 1e-4
 # 2 layers in float32.
 SERVE_ARCH, SERVE_B, SERVE_PLEN, SERVE_GEN = "qwen3-14b", 4, 2048, 16
 CONSIST_LAYERS = 2
+
+# The training path: codeqwen1.5-7b at full width, depth cut from 32 to 2
+# layers (the K = 4 float32 residuals alone are 16 B a parameter: at 32
+# layers they would be 116 GB), the CLI's ACPD defaults (K = 4 groups, B = 2,
+# T = 10, rho = 1/64, gamma = 0.9, AdamW lr 1e-3, warm-up 3), batch 8 x
+# 1,024 tokens, 12 steps (step 9 is a dense sync), checkpointed at step 6.
+# The check at the same width: batch 4 x 512, one step.
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_B, TRAIN_SEQ = "codeqwen1.5-7b", 2, 8, 1024
+TRAIN_STEPS, TRAIN_CKPT_AT = 12, 6
+CHECK_B, CHECK_SEQ = 4, 512
+# bf16 tolerances, the loss within 1e-2 relative and each gradient leaf
+# within 5e-2 in relative L2 norm: every activation of the 2-layer stack is a
+# bf16 rounding (2^-8) of a float32 sum, and the deepest leaf (the
+# embedding) collects those of both layers. Against the plain forward the
+# kernel also rounds P to bf16 before P V; the dense exchange against the
+# plain gradient runs groups of 1 row where the plain step runs 4, so the
+# GEMMs sum in other orders and round other values.
+CHECK_LOSS_RTOL, CHECK_GRAD_RTOL = 1e-2, 5e-2
+# The dense exchange against the plain gradient again in float32 (fan-in
+# init): the same sums in other orders, 1e-4 in relative L2 norm.
+CHECK_F32_RTOL = 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 bytes/s,
 # float32 FLOP/s outside the tensor cores (the type the SDCA and top-k
@@ -1552,6 +1582,75 @@ def main() -> int:
     del q, k_, v_, out, want, qs, ks, vs
     torch.cuda.empty_cache()
 
+    # -- kernel 3b: the flash kernel at the training path's shapes, with lse --
+    # At the serve shape and at codeqwen1.5-7b's per-group training shape
+    # (8 rows over 4 groups: B 2, KV = 32, G = 1) with lse, and at the
+    # monitored full-batch forward's (B 8) without it, both dtypes: the output
+    # against the plain version's with kernel 3's tolerances, lse against the
+    # plain logsumexp, the output with lse bit for bit the launch without, and
+    # the launches timed.
+    lse_tol = {"float32": 2e-5, "bfloat16": 1e-4}
+    lse_err = {"float32": 0.0, "bfloat16": 0.0}
+    out_err = {"float32": 0.0, "bfloat16": 0.0}
+    lse_ms = {}
+    train_shape = dict(B=TRAIN_B // 4, S=TRAIN_SEQ, KV=32, G=1, hd=128)
+    for label, shape, with_lse in (("serve", serve_shape, True), ("train", train_shape, True),
+                                   ("train_monitored", dict(train_shape, B=TRAIN_B), False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            B_, S_, KV_, G_, hd_ = (shape[k] for k in ("B", "S", "KV", "G", "hd"))
+            q = torch.randn(B_, S_, KV_, G_, hd_, generator=gen, device=dev).to(dtype)
+            k_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(dtype)
+            v_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(dtype)
+            name = str(dtype).removeprefix("torch.")
+            rtol = 1e-5 if dtype == torch.float32 else 0.0
+            row = dict(at=label, shape=shape, dtype=name, causal=True, return_lse=with_lse)
+            if with_lse:
+                out, lse = ops.flash_attention_fwd(q, k_, v_, causal=True, return_lse=True)
+                want_out, want = ref.flash_attention_fwd_ref(q, k_, v_, causal=True,
+                                                            return_lse=True)
+                same_out = bool(torch.equal(out, ops.flash_attention_fwd(q, k_, v_,
+                                                                         causal=True)))
+            else:
+                out = ops.flash_attention_fwd(q, k_, v_, causal=True)
+                want_out = ref.flash_attention_fwd_ref(q, k_, v_, causal=True)
+            torch.cuda.synchronize()
+            o_err = float((out.float() - want_out.float()).abs().max())
+            o_within = bool(torch.allclose(out.float(), want_out.float(), rtol=rtol,
+                                           atol=tol[name]))
+            out_err[name] = max(out_err[name], o_err)
+            flash_err[name] = max(flash_err[name], o_err)
+            row.update(out_max_abs_err=o_err, out_rtol=rtol, out_atol=tol[name],
+                       out_within=o_within)
+            check(o_within, f"flash output within tolerance ({label}, {name})")
+            without_ms = time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, causal=True),
+                                 warmup=2, reps=10)
+            with_ms = None
+            if with_lse:
+                err = float((lse - want).abs().max())
+                within = bool(torch.allclose(lse, want, rtol=1e-5, atol=lse_tol[name]))
+                lse_err[name] = max(lse_err[name], err)
+                with_ms = time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, causal=True,
+                                                                  return_lse=True),
+                                  warmup=2, reps=10)
+                row.update(lse_max_abs_err=err, rtol=1e-5, atol=lse_tol[name], within=within,
+                           out_unchanged=same_out, ms_with_lse=with_ms)
+                check(within, f"flash lse within tolerance ({label}, {name})")
+                check(same_out, f"flash output unchanged by return_lse ({label}, {name})")
+                del lse, want
+            plain_ms = time_ms(lambda: ref.flash_attention_fwd_ref(q, k_, v_, causal=True,
+                                                                   return_lse=with_lse),
+                               warmup=1, reps=3)
+            lse_ms[f"{label}_{name}"] = dict(with_lse=with_ms, without_lse=without_ms,
+                                             plain=plain_ms)
+            emit("kernel_flash_attention_lse", **row, ms_without_lse=without_ms,
+                 plain_ms=plain_ms)
+            del q, k_, v_, out, want_out
+    kernels["flash_attention_fwd"].update(
+        max_abs_err=max(flash_err.values()), out_max_abs_err_by_shape=out_err,
+        lse_max_abs_err=lse_err, ms_with_lse=lse_ms["serve_bfloat16"]["with_lse"],
+        ms_by_shape=lse_ms)
+    torch.cuda.empty_cache()
+
     # -- main path 4: serve qwen3-14b at full width and depth ----------------
     cfg = get_config(SERVE_ARCH)
     t0 = time.perf_counter()
@@ -1612,6 +1711,282 @@ def main() -> int:
     check(consist["flash_attention_fwd"] == 2 * CONSIST_LAYERS, "both prefills used the kernel")
     check(close, "prefill over S+1 tokens agrees with prefill over S plus one decode step")
     del p2, caches
+    torch.cuda.empty_cache()
+
+    # -- main path 6: ACPD-exchange training of codeqwen1.5-7b ---------------
+    # The CLI's setup (python -m repro_torch.launch.train --arch codeqwen1.5-7b
+    # ...) at 2 layers, through build_train_step, TokenPipeline and the
+    # checkpoint module; step 6's state is saved for train_resume.
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core import exchange as exch_lib
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps as train_steps
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import train_loss
+    from repro_torch.models.param import tree_flatten, tree_leaves_with_path, tree_map
+    from repro_torch.optim.optimizers import init_state as opt_init
+
+    args = train_cli.parser().parse_args(
+        ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+         "--seq", str(TRAIN_SEQ), "--seed", str(SEED)])
+    setup = train_cli.setup_from_args(args)
+    tcfg = dataclasses.replace(setup.cfg, num_layers=TRAIN_LAYERS)
+    setup = dataclasses.replace(setup, cfg=tcfg)
+    exch = setup.exchange
+    step_fn = train_steps.build_train_step(setup, dev)
+
+    def fresh_params():
+        return tree_materialize(model_spec(tcfg), torch.Generator(device=dev).manual_seed(SEED),
+                                dev)
+
+    def state_leaves(params, opt_state, exch_state):
+        return (tree_flatten(params)[0] + [opt_state.step] + tree_flatten(opt_state.mu)[0]
+                + tree_flatten(opt_state.nu)[0] + tree_flatten(exch_state.residual)[0])
+
+    def fingerprint(t: torch.Tensor) -> tuple[int, int]:
+        """Two int64 sums of the tensor's raw words (plain and index-weighted):
+        equal tensors give equal pairs; one changed bit changes them."""
+        words = t.detach().reshape(-1)
+        words = words.view(torch.int16 if words.element_size() == 2 else torch.int32)
+        total = weighted = 0
+        for lo in range(0, words.numel(), 1 << 26):
+            w = words[lo:lo + (1 << 26)].to(torch.int64)
+            idx = torch.arange(lo, lo + w.numel(), device=w.device) % 65521 + 1
+            total += int(w.sum())
+            weighted += int((w * idx).sum())
+        return total, weighted
+
+    n_params = sum(math.prod(s.shape) for s in tree_flatten(model_spec(tcfg))[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = fresh_params()
+    opt_state = opt_init(setup.optimizer, params)
+    exch_state = exch_lib.init_state(exch, params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = TokenPipeline(tcfg, TRAIN_B, TRAIN_SEQ, seed=SEED, device=dev)
+    ckpt_root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    rows, ckpt_save_s = [], None
+    ops.reset_launch_counts()
+    t_run = time.perf_counter()
+    for step in range(TRAIN_STEPS):
+        batch = pipe.next_batch()
+        before = ops.LAUNCHES["flash_attention_fwd"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, exch_state, m = step_fn(params, opt_state, exch_state, batch)
+        torch.cuda.synchronize()
+        row = {k.removeprefix("exchange/"): float(v) for k, v in m.items()}
+        row.update(step=step, ms=(time.perf_counter() - t0) * 1e3,
+                   flash_launches=ops.LAUNCHES["flash_attention_fwd"] - before)
+        rows.append(row)
+        if step + 1 == TRAIN_CKPT_AT:
+            t0 = time.perf_counter()
+            save_checkpoint(ckpt_root, step + 1, {"params": params, "opt": opt_state,
+                                                  "exch": exch_state},
+                            extra={"step": step + 1, "pipeline": pipe.state_dict()})
+            ckpt_save_s = time.perf_counter() - t0
+    run_s = time.perf_counter() - t_run
+    launches["train"] = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    K_t, B_t, T_t = exch.num_groups, exch.group_size, exch.sync_period
+    want_flash = (1 + 2 * K_t) * TRAIN_LAYERS
+    steady = sorted(r["ms"] for r in rows[3:])
+    losses = [r["loss"] for r in rows]
+    final_prints = [fingerprint(t) for t in state_leaves(params, opt_state, exch_state)]
+    meta_ref = {"params": tree_map(lambda t: torch.empty_like(t, device="meta"), params),
+                "opt": type(opt_state)(*(tree_map(lambda t: torch.empty_like(t, device="meta"),
+                                                  x) for x in opt_state)),
+                "exch": exch_lib.ExchangeState(tree_map(
+                    lambda t: torch.empty_like(t, device="meta"), exch_state.residual))}
+    emit("train", arch=tcfg.arch_id, layers=tcfg.num_layers, d_model=tcfg.d_model,
+         heads=tcfg.num_heads, kv_heads=tcfg.num_kv_heads, d_ff=tcfg.d_ff,
+         vocab=tcfg.vocab_size, dtype=tcfg.param_dtype, params=n_params, batch=TRAIN_B,
+         seq=TRAIN_SEQ, exchange=dataclasses.asdict(exch),
+         optimizer=dataclasses.asdict(setup.optimizer), init_s=init_s, run_s=run_s,
+         steps=rows, median_step_ms_3_11=steady[len(steady) // 2],
+         step_ms_range_3_11=[steady[0], steady[-1]], peak_mem_gb=peak_gb,
+         flash_launches_per_step_rule=want_flash, ckpt_save_s=ckpt_save_s,
+         launches=launches["train"])
+    check(all(math.isfinite(x) for x in losses), "every training loss is finite")
+    for r in rows:
+        dense = r["step"] % T_t == T_t - 1
+        check(r["dense_step"] == float(dense), f"step {r['step']} dense flag")
+        check(r["participating"] == (K_t if dense else B_t),
+              f"step {r['step']}: {r['participating']} groups participated")
+        check(not dense or r["sent_fraction"] == 1.0, "the dense step sends everything")
+        check(r["flash_launches"] == want_flash,
+              f"step {r['step']} launched the flash kernel {r['flash_launches']} times, "
+              f"want (1 + 2K) x layers = {want_flash}")
+    check(any(r["dense_step"] for r in rows), "the run holds a dense sync")
+    check(sum(losses[-3:]) / 3 < losses[0],
+          f"the last three losses {losses[-3:]} average below step 0's {losses[0]}")
+    del params, opt_state, exch_state, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- train_check: the kernel path against the plain forward, one step ----
+    # Same width, 2 layers, batch 4 x 512, from the same weights and batch,
+    # at two inits: the init rule's weights (those of the training run: the
+    # stacked wq, wk are drawn with std 1/sqrt(2), ROADMAP C3, so the scores
+    # reach ~2,000 and the softmax is saturated), and "fan_in", the same draw
+    # with each stacked (layers, fan_in, fan_out) leaf rescaled to std
+    # 1/sqrt(fan_in). Both bf16 paths are also held to a float32 run (the
+    # plain forward, float32 weights) to show which differences are bf16
+    # rounding. Then the dense exchange (B = K, rho = 1, gamma = 1) against the
+    # plain step's gradient.
+    cbatch = TokenPipeline(tcfg, CHECK_B, CHECK_SEQ, seed=SEED + 1, device=dev).next_batch()
+    cfg32 = dataclasses.replace(tcfg, param_dtype="float32", compute_dtype="float32")
+    grouped = {k: v.reshape(K_t, v.shape[0] // K_t, *v.shape[1:]) for k, v in cbatch.items()}
+    # Dotted paths sorted are tree_flatten's order ('.' sorts before any key character).
+    paths = sorted(path for path, _ in tree_leaves_with_path(model_spec(tcfg)))
+    above_attention = ("final_norm.scale", "lm_head.out")
+
+    def rel_l2(a, b):
+        return float(torch.linalg.vector_norm((a.float() - b.float()).reshape(-1))
+                     / torch.clamp(torch.linalg.vector_norm(b.float().reshape(-1)), min=1e-30))
+
+    def plain_grads(p, cfg_):
+        kernel_fwd = ops.flash_attention_fwd
+        ops.flash_attention_fwd = lambda q, k, v, **kw: ref.flash_attention_fwd_ref(q, k, v, **kw)
+        try:
+            out = train_steps.value_and_grad(lambda p_, b: train_loss(p_, b, cfg_), p, cbatch)
+            torch.cuda.synchronize()
+        finally:
+            ops.flash_attention_fwd = kernel_fwd
+        return out
+
+    def fan_in(path, t):
+        if path.startswith("stage") and t.dim() == 3:
+            return (t.float() * math.sqrt(t.shape[0] / t.shape[1])).to(t.dtype)
+        return t
+
+    checks = {}
+    for init in ("rule", "fan_in"):
+        params = fresh_params()
+        if init == "fan_in":
+            flat = dict(tree_leaves_with_path(params))
+            params = tree_flatten(params)[1]([fan_in(p, flat[p]) for p in paths])
+        ops.reset_launch_counts()
+        loss_k, grads_k = train_steps.value_and_grad(lambda p, b: train_loss(p, b, tcfg),
+                                                     params, cbatch)
+        torch.cuda.synchronize()
+        launched = ops.LAUNCHES["flash_attention_fwd"]
+        loss_p, grads_p = plain_grads(params, tcfg)
+        loss_32, grads_32 = plain_grads(tree_map(lambda t: t.float(), params), cfg32)
+        g_k, g_p, g_32 = (tree_flatten(g)[0] for g in (grads_k, grads_p, grads_32))
+        row = dict(
+            loss_kernel=float(loss_k), loss_plain=float(loss_p), loss_float32=float(loss_32),
+            loss_rel_diff=abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+            kernel_flash_launches=launched,
+            kernel_vs_plain={p: rel_l2(a, b) for p, a, b in zip(paths, g_k, g_p)},
+            kernel_vs_float32={p: rel_l2(a, b) for p, a, b in zip(paths, g_k, g_32)},
+            plain_vs_float32={p: rel_l2(a, b) for p, a, b in zip(paths, g_p, g_32)})
+        del grads_p, grads_32, g_p, g_32
+        dense_cfg = exch_lib.dense_config(K_t)
+        dense_state = exch_lib.init_state(dense_cfg, params)
+        ops.reset_launch_counts()
+        update, dense_state, dm = exch_lib.exchange_sequential(
+            dense_cfg, lambda p, b: train_steps.value_and_grad(
+                lambda p_, b_: train_loss(p_, b_, tcfg), p, b)[1],
+            params, grouped, dense_state, torch.zeros((), dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        row.update(
+            dense_flash_launches=ops.LAUNCHES["flash_attention_fwd"],
+            dense_vs_plain={p: rel_l2(u, g) for p, u, g in zip(paths, tree_flatten(update)[0],
+                                                                g_k)},
+            dense_sent_fraction=float(dm["exchange/sent_fraction"]),
+            dense_participating=float(dm["exchange/participating"]),
+            dense_residual_zero=all(float(r.abs().max()) == 0.0
+                                    for r in tree_flatten(dense_state.residual)[0]))
+        del grads_k, g_k, update, dense_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        if init == "fan_in":  # the dense exchange in float32 (the CUDA-core kernel)
+            p32 = tree_map(lambda t: t.float(), params)
+            del params
+
+            def grad32(p, b):
+                return train_steps.value_and_grad(lambda p_, b_: train_loss(p_, b_, cfg32),
+                                                  p, b)[1]
+
+            g32 = tree_flatten(grad32(p32, cbatch))[0]
+            dense_state = exch_lib.init_state(dense_cfg, p32)
+            update, dense_state, _ = exch_lib.exchange_sequential(
+                dense_cfg, grad32, p32, grouped, dense_state,
+                torch.zeros((), dtype=torch.int32, device=dev))
+            row["dense_vs_plain_float32"] = {
+                p: rel_l2(u, g) for p, u, g in zip(paths, tree_flatten(update)[0], g32)}
+            del p32, g32, update, dense_state
+        else:
+            del params
+        checks[init] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("train_check", layers=TRAIN_LAYERS, batch=CHECK_B, seq=CHECK_SEQ, dtype="bfloat16",
+         loss_rtol=CHECK_LOSS_RTOL, grad_rtol=CHECK_GRAD_RTOL, float32_rtol=CHECK_F32_RTOL,
+         checked_at_rule_init=above_attention, **checks)
+    for init, row in checks.items():
+        check(row["kernel_flash_launches"] == 2 * TRAIN_LAYERS,
+              f"{init}: the kernel path's forward and recompute launched the flash kernel "
+              "once a layer each")
+        check(row["loss_rel_diff"] <= CHECK_LOSS_RTOL,
+              f"{init}: kernel loss within {CHECK_LOSS_RTOL} of the plain one")
+        check(row["dense_sent_fraction"] == 1.0 and row["dense_participating"] == K_t
+              and row["dense_residual_zero"]
+              and row["dense_flash_launches"] == 2 * TRAIN_LAYERS * K_t,
+              f"{init}: the dense exchange sends everything from every group, keeps no "
+              "residual, and launches the kernel twice a layer a group")
+        # At the rule's init only the leaves above every attention layer are
+        # compared: below one, the saturated softmax's ds = p (dp - delta)
+        # cancels at bf16 rounding in both paths (see plain_vs_float32).
+        leaves = paths if init == "fan_in" else above_attention
+        worst = max(row["kernel_vs_plain"][p] for p in leaves)
+        check(worst <= CHECK_GRAD_RTOL,
+              f"{init}: kernel gradients within {CHECK_GRAD_RTOL} (relative L2) of the plain "
+              f"ones on {len(leaves)} leaves (worst {worst})")
+        worst = max(row["dense_vs_plain"][p] for p in leaves)
+        check(worst <= CHECK_GRAD_RTOL,
+              f"{init}: the dense exchange's update within {CHECK_GRAD_RTOL} of the plain "
+              f"gradient on {len(leaves)} leaves (worst {worst})")
+    worst = max(checks["fan_in"]["dense_vs_plain_float32"].values())
+    check(worst <= CHECK_F32_RTOL, f"in float32 the dense exchange's update is within "
+          f"{CHECK_F32_RTOL} of the plain gradient (worst {worst})")
+    del cbatch, grouped
+
+    # -- train_resume: the run resumed from its step-6 checkpoint ------------
+    # No deterministic-algorithms switch is set: the step's kernels (the
+    # flash kernel, cuBLAS, the sort-based index backward, the reductions)
+    # repeat bit for bit on one card as they are.
+    t0 = time.perf_counter()
+    tree, extra = load_checkpoint(ckpt_root, meta_ref, TRAIN_CKPT_AT, device=dev)
+    torch.cuda.synchronize()
+    ckpt_load_s = time.perf_counter() - t0
+    params, opt_state, exch_state = tree["params"], tree["opt"], tree["exch"]
+    del tree
+    pipe = TokenPipeline(tcfg, TRAIN_B, TRAIN_SEQ, seed=SEED, device=dev)
+    pipe.load_state_dict(extra["pipeline"])
+    resumed = []
+    for step in range(int(extra["step"]), TRAIN_STEPS):
+        params, opt_state, exch_state, m = step_fn(params, opt_state, exch_state,
+                                                   pipe.next_batch())
+        resumed.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    resumed_prints = [fingerprint(t) for t in state_leaves(params, opt_state, exch_state)]
+    differ = [i for i, (a, b) in enumerate(zip(resumed_prints, final_prints)) if a != b]
+    ckpt_gb = sum(f.stat().st_size for f in ckpt_root.glob("*.npz")) / 1e9
+    shutil.rmtree(ckpt_root)
+    emit("train_resume", from_step=int(extra["step"]), to_step=TRAIN_STEPS,
+         losses_resumed=resumed, losses_unbroken=losses[TRAIN_CKPT_AT:],
+         leaves=len(final_prints), leaves_differing=differ, checkpoint_gb=ckpt_gb,
+         save_s=ckpt_save_s, load_s=ckpt_load_s, deterministic_switches="none")
+    check(resumed == losses[TRAIN_CKPT_AT:], "the resumed losses equal the unbroken run's")
+    check(not differ, f"the resumed state equals the unbroken run's at step {TRAIN_STEPS} "
+          f"bit for bit (leaves differing: {differ})")
+    del params, opt_state, exch_state, m
+    gc.collect()
     torch.cuda.empty_cache()
 
     for name, entry in kernels.items():

@@ -15,19 +15,19 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "qwen3-14b": "qwen3_14b",
+    "phi3-medium-14b": "phi3_medium_14b",
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
 }
 
 # Known to the JAX package, not yet runnable here: what each waits for.
 _WAITING = {
-    "pixtral-12b": "ROADMAP A11 (vision frontend)",
-    "qwen3-moe-30b-a3b": "ROADMAP A11 (MoE layers)",
-    "jamba-1.5-large-398b": "ROADMAP A11 (Mamba and MoE layers)",
-    "mamba2-780m": "ROADMAP A11 (Mamba layers)",
-    "qwen3-moe-235b-a22b": "ROADMAP A11 (MoE layers)",
-    "hubert-xlarge": "ROADMAP A11 (audio frontend, encoder-only)",
-    "phi3-medium-14b": "ROADMAP A11 (its config file; the layers are ported)",
-    "gemma3-27b": "ROADMAP A11 (sliding windows, logit softcap)",
-    "codeqwen1.5-7b": "ROADMAP A11 (its config file; the layers are ported)",
+    "pixtral-12b": "ROADMAP A7 (vision frontend)",
+    "qwen3-moe-30b-a3b": "ROADMAP A7 (MoE layers)",
+    "jamba-1.5-large-398b": "ROADMAP A7 (Mamba and MoE layers)",
+    "mamba2-780m": "ROADMAP A7 (Mamba layers)",
+    "qwen3-moe-235b-a22b": "ROADMAP A7 (MoE layers)",
+    "hubert-xlarge": "ROADMAP A7 (audio frontend, encoder-only)",
+    "gemma3-27b": "ROADMAP A7 (sliding windows, logit softcap)",
 }
 
 @dataclasses.dataclass(frozen=True)

@@ -4,8 +4,8 @@ The JAX package's arrays (numpy views of its ``jax.Array`` results) become
 the port's tensors here, so that both packages can compute on the same data:
 a problem built by ``repro``, a loop state (the server model, the duals,
 the workers' residuals and the server's catch-up buffers) taken from a run,
-or a model's parameter tree. Values are copied bit for bit; nothing is
-recomputed.
+a model's parameter tree, or a training run's optimizer and exchange state.
+Values are copied bit for bit; nothing is recomputed.
 """
 
 from __future__ import annotations
@@ -15,11 +15,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.exchange import ExchangeState
 from repro_torch.core.objectives import Problem
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import model_spec
 from repro_torch.models.param import tree_leaves_with_path
+from repro_torch.optim.optimizers import OptState
 
 # The state of the group loop (Algorithms 1 + 2), by the reference loop's
 # names: the server model and catch-up buffers, the workers' models, duals
@@ -90,19 +92,24 @@ def params_from_arrays(tree: Mapping, cfg: ModelConfig, *,
     present with its shape and dtype, and no other; values are copied bit
     for bit.
     """
-    dev = resolve_device(device)
-    spec = model_spec(cfg)
+    want = {path: (s.shape, s.dtype)
+            for path, s in tree_leaves_with_path(model_spec(cfg))}
+    return _tree_from_arrays(tree, want, "parameter tree", resolve_device(device))
+
+
+def _tree_from_arrays(tree: Mapping, want: dict, what: str, dev: torch.device) -> dict:
+    """Nested dicts of tensors on ``dev`` from ``tree``, whose dotted paths
+    must be exactly ``want``'s, each leaf of ``want[path]``'s (shape, dtype)."""
     got = {path: a for path, a in tree_leaves_with_path(dict(tree))}
-    want = dict(tree_leaves_with_path(spec))
     if set(got) != set(want):
-        raise ValueError(f"parameter tree differs from model_spec: missing "
+        raise ValueError(f"{what} differs from model_spec: missing "
                          f"{sorted(set(want) - set(got))}, unknown "
                          f"{sorted(set(got) - set(want))}")
     flat = {}
-    for path, s in want.items():
+    for path, (shape, dtype) in want.items():
         t = _leaf_tensor(got[path])
-        if tuple(t.shape) != s.shape or t.dtype != s.dtype:
-            raise ValueError(f"{path}: want {s.dtype} {s.shape}, got {t.dtype} "
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{path}: want {dtype} {tuple(shape)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
         flat[path] = t.to(dev)
     out: dict = {}
@@ -113,3 +120,33 @@ def params_from_arrays(tree: Mapping, cfg: ModelConfig, *,
             node = node.setdefault(p, {})
         node[name] = t
     return out
+
+
+def _moments_want(cfg: ModelConfig, lead: tuple[int, ...] = ()) -> dict:
+    return {path: ((*lead, *s.shape), torch.float32)
+            for path, s in tree_leaves_with_path(model_spec(cfg))}
+
+
+def opt_state_from_arrays(state, cfg: ModelConfig, *,
+                          device: str | torch.device | None = None) -> OptState:
+    """The port's ``OptState`` from the JAX package's (``step``, ``mu``,
+    ``nu``; ``nu`` None for SGD), leaf for leaf: the moments are float32
+    trees of ``cfg``'s parameter paths, the step a 0-dim int32."""
+    dev = resolve_device(device)
+    step = _leaf_tensor(state.step)
+    if step.shape != () or step.dtype != torch.int32:
+        raise ValueError(f"step: want a 0-dim int32, got {step.dtype} {tuple(step.shape)}")
+    want = _moments_want(cfg)
+    mu = _tree_from_arrays(state.mu, want, "optimizer state mu", dev)
+    nu = None if state.nu is None else _tree_from_arrays(state.nu, want,
+                                                         "optimizer state nu", dev)
+    return OptState(step.to(dev), mu, nu)
+
+
+def exchange_state_from_arrays(state, cfg: ModelConfig, num_groups: int, *,
+                               device: str | torch.device | None = None) -> ExchangeState:
+    """The port's ``ExchangeState`` from the JAX package's: float32 residuals
+    of shape (num_groups, *param_shape) for each of ``cfg``'s parameters."""
+    return ExchangeState(residual=_tree_from_arrays(
+        state.residual, _moments_want(cfg, (num_groups,)), "exchange residuals",
+        resolve_device(device)))

@@ -177,6 +177,12 @@ class TorchDraws:
 
     def choice(self, keys, n: int, num: int, p: torch.Tensor) -> torch.Tensor:
         p = p.to(self.generator.device)
+        # A row of weights with a NaN or an inf, or that sums to zero (a
+        # diverged cell's), draws uniformly: the cell runs on and is masked,
+        # as the JAX package's is. Decided on the device, with no host sync.
+        bad = (~torch.isfinite(p)).any(dim=-1, keepdim=True) | (
+            p.sum(dim=-1, keepdim=True) <= 0)
+        p = torch.where(bad, torch.ones_like(p), p)
         return torch.multinomial(p, num, replacement=True,
                                  generator=self.generator).to(torch.int32)
 

@@ -63,6 +63,14 @@
 // its 201 MB of traffic 0.060 ms, so operations bound it: the bf16 kernel's
 // design is about keeping the tensor cores fed.
 //
+// Log-sum-exp: given a non-null lse pointer (float32, laid out (B, KV, G, S)),
+// each kernel also writes every query row's m + log(l), the log of the sum
+// of the exponentials of the row's scaled scores, in natural-log units, which
+// is what a backward pass recomputes the probabilities from. m and l are the
+// row's running maximum and sum, which the online softmax holds anyway at the
+// end of the row, so this costs one float a row. Rows at or past S write
+// nothing. A null pointer writes nothing and leaves the kernels as they were.
+//
 // C interface, launched on the caller's stream; returns cudaGetLastError().
 // The tensor maps are encoded on the host through the runtime's driver entry
 // point, so the library needs no link against libcuda.
@@ -110,8 +118,8 @@ __device__ __forceinline__ float group_sum(float x) {
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out, int S, int KV,
-                 int G, int causal, float sm_scale) {
+              const float* __restrict__ v, float* __restrict__ out,
+              float* __restrict__ lse, int S, int KV, int G, int causal, float sm_scale) {
   using L = Tile<HD>;
   constexpr int BK = L::BK;
   constexpr int CPT = BK / 16;  // score columns per thread: tx + 16 j
@@ -249,6 +257,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     float* o = ob + (size_t)qpos[i] * q_tok + (r % G) * HD;
 #pragma unroll
     for (int j = 0; j < OPT; ++j) o[tx + 16 * j] = acc[i][j] / denom;
+    // m and l are the same in the row's 16 lanes (the shuffles above).
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)blockIdx.y * G + r % G) * S + qpos[i]] = m[i] + logf(denom);
   }
 }
 
@@ -261,6 +272,7 @@ constexpr int kStages = 2;    // K/V ring
 constexpr int kConsumers = 256;
 constexpr int kThreadsBf16 = kConsumers + 128;  // + the producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -485,7 +497,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
-               int S, int H, int G, int causal, float scale_log2) {
+               float* __restrict__ lse, int S, int H, int G, int causal, float scale_log2) {
   using L = Bf16Tile<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -636,6 +648,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
     const int qp = row0 + 8 * i;
     if (qp >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // m is in log2 units of the scaled scores (exp2 above): back to natural.
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((size_t)b * H + head) * S + qp] = m[i] * kLn2 + logf(denom);
     __nv_bfloat16* orow = out + ((size_t)(b * S + qp) * H + head) * HD + col0;
 #pragma unroll
     for (int c = 0; c < HD / 8; ++c) {
@@ -683,8 +698,8 @@ bool encode_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int hd,
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int S, int KV,
-                int G, int causal, float sm_scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                int S, int KV, int G, int causal, float sm_scale, cudaStream_t stream) {
   using L = Bf16Tile<HD>;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
@@ -706,13 +721,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * KV * G, (S + kBQ - 1) / kBQ);
   flash_fwd_bf16<HD><<<grid, kThreadsBf16, L::kSmem, stream>>>(
-      q_map, k_map, v_map, (__nv_bfloat16*)out, S, KV * G, G, causal, sm_scale * kLog2e);
+      q_map, k_map, v_map, (__nv_bfloat16*)out, lse, S, KV * G, G, causal, sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int S, int KV,
-               int G, int causal, float sm_scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+               int S, int KV, int G, int causal, float sm_scale, cudaStream_t stream) {
   const size_t smem = Tile<HD>::bytes;
   if (B * KV > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -721,16 +736,17 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   const int bq = kRows / G;
   const dim3 grid((S + bq - 1) / bq, B * KV);
   flash_fwd_f32<HD><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, S, KV, G, causal,
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, S, KV, G, causal,
       sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int KV, int G,
-           int dtype, int causal, float sm_scale, cudaStream_t stream) {
-  if (dtype == 0) return launch_f32<HD>(q, k, v, out, B, S, KV, G, causal, sm_scale, stream);
-  if (dtype == 1) return launch_bf16<HD>(q, k, v, out, B, S, KV, G, causal, sm_scale, stream);
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+           int KV, int G, int dtype, int causal, float sm_scale, cudaStream_t stream) {
+  if (dtype == 0) return launch_f32<HD>(q, k, v, out, lse, B, S, KV, G, causal, sm_scale, stream);
+  if (dtype == 1)
+    return launch_bf16<HD>(q, k, v, out, lse, B, S, KV, G, causal, sm_scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -738,18 +754,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 
 extern "C" {
 
-// dtype: 0 float32 (CUDA-core kernel), 1 bfloat16 (wgmma + TMA kernel). The
-// wrapper checks every argument first.
-int flash_attn_launch(const void* q, const void* k, const void* v, void* out,
+// dtype: 0 float32 (CUDA-core kernel), 1 bfloat16 (wgmma + TMA kernel). lse
+// may be null (no log-sum-exp written). The wrapper checks every argument first.
+int flash_attn_launch(const void* q, const void* k, const void* v, void* out, void* lse,
                       int B, int S, int KV, int G, int hd, int dtype, int causal,
                       float sm_scale, void* stream) {
   if (B < 1 || S < 1 || KV < 1 || G < 1 || G > kRows) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  float* f = (float*)lse;
   switch (hd) {
-    case 16: return launch<16>(q, k, v, out, B, S, KV, G, dtype, causal, sm_scale, st);
-    case 32: return launch<32>(q, k, v, out, B, S, KV, G, dtype, causal, sm_scale, st);
-    case 64: return launch<64>(q, k, v, out, B, S, KV, G, dtype, causal, sm_scale, st);
-    case 128: return launch<128>(q, k, v, out, B, S, KV, G, dtype, causal, sm_scale, st);
+    case 16: return launch<16>(q, k, v, out, f, B, S, KV, G, dtype, causal, sm_scale, st);
+    case 32: return launch<32>(q, k, v, out, f, B, S, KV, G, dtype, causal, sm_scale, st);
+    case 64: return launch<64>(q, k, v, out, f, B, S, KV, G, dtype, causal, sm_scale, st);
+    case 128: return launch<128>(q, k, v, out, f, B, S, KV, G, dtype, causal, sm_scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

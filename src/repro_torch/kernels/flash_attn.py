@@ -16,6 +16,11 @@ starting on a 16-byte boundary (the TMA's rule); hd one of
 :data:`HEAD_DIMS`; at most 64 query heads per KV head. Like the TPU kernel,
 it scales q by ``sm_scale`` (default ``hd ** -0.5``) itself: pass q not
 pre-scaled, or pre-scaled with ``sm_scale=1.0``.
+
+With ``return_lse=True`` the same launch also writes each query row's
+log-sum-exp of its scaled, masked scores (float32, (B, KV, G, S)), the
+residual a backward pass recomputes the probabilities from
+(``models/flash.py``); without it the kernel writes no such row.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attn_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, p]
+        lib.flash_attn_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p]
         lib.flash_attn_launch.restype = i
         lib._typed = True
     return lib
@@ -69,9 +74,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                             causal: bool = True,
-                             sm_scale: float | None = None) -> torch.Tensor:
-    """Launch the kernel for q's dtype; returns (B, S, KV, G, hd) in that dtype.
+                             causal: bool = True, sm_scale: float | None = None,
+                             return_lse: bool = False):
+    """Launch the kernel for q's dtype; returns (B, S, KV, G, hd) in that dtype,
+    and with ``return_lse`` also the float32 log-sum-exp (B, KV, G, S).
 
     bfloat16 runs the tensor-core kernel, float32 the CUDA-core kernel. The
     launch is asynchronous on the current stream.
@@ -82,9 +88,12 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     lib = _lib()
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
+        lse = (torch.empty((B, KV, G, S), dtype=torch.float32, device=q.device)
+               if return_lse else None)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_attn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     out.data_ptr(), B, S, KV, G, hd,
-                                     _DTYPES[q.dtype], int(causal), scale, stream)
+                                     out.data_ptr(), None if lse is None else lse.data_ptr(),
+                                     B, S, KV, G, hd, _DTYPES[q.dtype], int(causal), scale,
+                                     stream)
     _build.check(lib, NAME, code, "flash_attn launch")
-    return out
+    return (out, lse) if return_lse else out

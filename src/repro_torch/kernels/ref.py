@@ -48,12 +48,15 @@ def sdca_inner_ref(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
 
 
 def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                            causal: bool, sm_scale: float | None = None) -> torch.Tensor:
+                            causal: bool, sm_scale: float | None = None,
+                            return_lse: bool = False):
     """GQA attention forward, computed in float32, cast to ``q.dtype``.
 
     ``q (B, S, KV, G, hd)``, ``k``/``v (B, S, KV, hd)``; ``q`` is scaled by
     ``sm_scale`` (default ``hd ** -0.5``) here, so pass it unscaled, or
-    pre-scaled with ``sm_scale=1.0``. Masked scores are ``NEG_INF``.
+    pre-scaled with ``sm_scale=1.0``. Masked scores are ``NEG_INF``. With
+    ``return_lse`` also the float32 ``torch.logsumexp`` of each row's masked,
+    scaled scores, (B, KV, G, S).
     """
     B, S, KV, G, hd = q.shape
     scale = hd**-0.5 if sm_scale is None else sm_scale
@@ -66,5 +69,7 @@ def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
         mask = mask & (kpos <= qpos)
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
-    return out.to(q.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out

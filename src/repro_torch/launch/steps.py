@@ -1,0 +1,108 @@
+"""The train step: the plain data-parallel step or the ACPD grouped delta exchange.
+
+PyTorch counterpart of ``repro.launch.steps.build_train_step`` on one card.
+:func:`build_train_step` returns ``step(params, opt_state, exch_state,
+batch) -> (params, opt_state, exch_state, metrics)`` with the JAX step's
+semantics:
+
+* ``setup.exchange is None``: the loss and its gradient over the whole
+  batch (the synchronous mean-gradient baseline), then the optimizer;
+* otherwise the monitored loss is the loss of the whole batch (a forward
+  only), then the batch is split into ``num_groups`` row groups and
+  ``core.exchange.exchange_sequential`` takes one group's gradient at a
+  time, then the optimizer applies the exchanged update.
+
+The optimizer and the sequential exchange update their state in place and
+return it (see ``optim.optimizers`` and ``core.exchange``), and so does the
+step: the returned trees hold the tensors it was given. Every attention
+layer runs the flash kernel: with the exchange, once per layer in the
+monitored forward and, under ``remat``, twice per layer for each group
+(forward and recompute), (1 + 2K) x layers launches a step.
+
+The mesh is not ported (ROADMAP A7): sequence sharding, ZeRO-1 and FSDP
+have nothing to shard over on one card, and asking for them raises. The JAX
+package's ``profile``, ``exploit_window`` and ``sequential_exchange``
+options have no counterpart: the rule tables need the mesh, windowed layers
+raise, and the step always takes the sequential exchange (K stacked
+gradients would not fit beside the residuals at full width).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.core import exchange as exch_lib
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import train_loss
+from repro_torch.models.param import tree_flatten
+from repro_torch.optim.optimizers import OptimizerConfig, apply_update
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSetup:
+    cfg: ModelConfig
+    optimizer: OptimizerConfig
+    exchange: exch_lib.ExchangeConfig | None  # None -> plain mean-grad DP
+    remat: bool = True
+    seq_shard: bool = False  # the JAX package's mesh options: False on one card
+    zero1: bool = False
+    fsdp: bool = False
+
+
+def value_and_grad(loss_fn, params: PyTree, batch: dict):
+    """(loss, gradient tree) of ``loss_fn(params, batch)`` in the parameters'
+    dtypes. ``params`` need not require grad; they are not modified."""
+    leaves, unflatten = tree_flatten(params)
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss = loss_fn(unflatten(live), batch)
+        grads = torch.autograd.grad(loss, live)
+    return loss.detach(), unflatten(list(grads))
+
+
+def build_train_step(setup: TrainSetup, device: str | torch.device | None = None):
+    """The step function of ``setup`` (see the module docstring); its inputs
+    must lie on ``device`` (the card unless named)."""
+    for name in ("seq_shard", "zero1", "fsdp"):
+        if getattr(setup, name):
+            raise NotImplementedError(
+                f"TrainSetup.{name}=True needs the mesh, which is not ported yet "
+                "(ROADMAP A7: launch/mesh); on one card set it False")
+    dev = resolve_device(device)
+    cfg, exch = setup.cfg, setup.exchange
+
+    def loss_fn(params, batch):
+        return train_loss(params, batch, cfg, remat=setup.remat)
+
+    def grad_fn(params, batch):
+        return value_and_grad(loss_fn, params, batch)[1]
+
+    def grouped(batch):
+        G = exch.num_groups
+        return {k: v.reshape(G, v.shape[0] // G, *v.shape[1:]) for k, v in batch.items()}
+
+    def step(params, opt_state, exch_state, batch):
+        if batch["tokens"].device != dev:
+            raise ValueError(f"the batch lies on {batch['tokens'].device}, the step "
+                             f"runs on {dev}")
+        metrics = {}
+        if exch is None:
+            loss, update = value_and_grad(loss_fn, params, batch)
+        else:
+            with torch.no_grad():
+                loss = loss_fn(params, batch)  # monitored value
+            update, exch_state, em = exch_lib.exchange_sequential(
+                exch, grad_fn, params, grouped(batch), exch_state, opt_state.step)
+            metrics.update(em)
+        params, opt_state, om = apply_update(setup.optimizer, params, update, opt_state)
+        metrics.update(om)
+        metrics["loss"] = loss
+        return params, opt_state, exch_state, metrics
+
+    return step

@@ -1,4 +1,4 @@
-"""Model stack of the port: dense attention text models (qwen3 family)."""
+"""Model stack of the port: dense attention text models (qwen3, phi3, codeqwen)."""
 
 from repro_torch.models.config import LayerSpec, ModelConfig  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401
@@ -6,5 +6,6 @@ from repro_torch.models.model import (  # noqa: F401
     init_caches,
     model_spec,
     prefill,
+    train_loss,
 )
 from repro_torch.models import param  # noqa: F401

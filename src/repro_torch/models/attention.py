@@ -1,12 +1,14 @@
-"""GQA attention: flash-kernel prefill and the decode path over a KV cache.
+"""GQA attention: flash-kernel prefill and training, and decode over a KV cache.
 
 PyTorch counterpart of ``repro.models.attention`` for layers with full
-attention and no logit softcap. Prefill runs every layer through
+attention and no logit softcap. Without a cache (prefill and training) every
+layer goes through ``models.flash.flash_attention``, whose forward is
 ``kernels.ops.flash_attention_fwd`` (on the card, the hand-written kernel
-``csrc/flash_attn.cu``); decode attends one query over the cache in plain
-PyTorch, as the JAX package does. A layer with a sliding window, or a
+``csrc/flash_attn.cu``) and whose backward is FlashAttention-2's
+recomputation; decode attends one query over the cache in plain PyTorch, as
+the JAX package does. A layer with a sliding window, or a
 config with a softcap, raises ``NotImplementedError`` on every device: those
-wait for ``attend_blocked`` and the windowed flash path (ROADMAP A11).
+wait for ``attend_blocked`` and the windowed flash path (ROADMAP A7).
 
 Scaling: ``_project_qkv`` pre-scales q by ``hd ** -0.5`` in the compute
 dtype, as the JAX package does, and ``attention`` hands that q to the kernel
@@ -17,9 +19,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.flash import FlashSpec, flash_attention
 from repro_torch.models.layers import rmsnorm, rope
 from repro_torch.models.param import ParamSpec
 
@@ -45,10 +47,10 @@ def check_supported(cfg: ModelConfig, window: int | None) -> None:
     if window is not None:
         raise NotImplementedError(
             f"{cfg.arch_id}: sliding-window attention (window={window}) is not "
-            "ported yet (ROADMAP A11)")
+            "ported yet (ROADMAP A7)")
     if cfg.attn_logit_softcap is not None:
         raise NotImplementedError(
-            f"{cfg.arch_id}: attention logit softcap is not ported yet (ROADMAP A11)")
+            f"{cfg.arch_id}: attention logit softcap is not ported yet (ROADMAP A7)")
 
 
 def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -95,8 +97,10 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               cache_len: int | None = None, return_kv: bool = False):
     """Full attention layer. Returns (out (B,S,D), cache or None).
 
-    Prefill (``cache=None``) goes through the flash kernel; ``return_kv=True``
-    also returns the projected (k, v) for the caller to assemble caches.
+    Prefill and training (``cache=None``) go through the flash kernel (the
+    backward's blocks are 512 by 512, the JAX package's defaults);
+    ``return_kv=True`` also returns the projected (k, v) for the caller to
+    assemble caches.
     Decode (``cache=(k_cache, v_cache)``, S == 1) writes the new token's k, v
     into slot ``cache_len - 1`` of the buffers in place, where the JAX
     package makes updated copies, and returns the same buffers.
@@ -110,8 +114,9 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     new_cache = None
     if cache is None:
-        out = ops.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                                      causal=cfg.causal, sm_scale=1.0)
+        spec = FlashSpec(causal=cfg.causal, window=window, block_q=512, block_k=512,
+                         softcap=cfg.attn_logit_softcap)
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), spec)
         if return_kv:
             new_cache = (k, v)
     else:

@@ -5,7 +5,10 @@ dense MLP. A *block* is one layer: pre-norm attention, plus a pre-norm
 SwiGLU MLP. A *stage* is a stack of identical periods whose parameters are
 stacked over a leading ``layers`` axis, as in the JAX package; where JAX
 scans, the port loops over the periods in Python and indexes the stacks.
-Mamba mixers and MoE MLPs raise ``NotImplementedError`` (ROADMAP A11), as
+With ``remat`` (training) each period runs under ``torch.utils.checkpoint``
+(non-reentrant), as JAX's ``jax.checkpoint`` of the scan body: its
+activations are recomputed in the backward pass instead of kept.
+Mamba mixers and MoE MLPs raise ``NotImplementedError`` (ROADMAP A7), as
 does the ring buffer of windowed layers.
 
 KV caches: a full-attention layer keeps a (B, S_max, KV, hd) buffer; a
@@ -18,6 +21,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.config import LayerSpec, ModelConfig
@@ -34,9 +38,9 @@ class AttnCache(NamedTuple):
 
 def _check_layer(layer: LayerSpec) -> None:
     if layer.kind != "attn":
-        raise NotImplementedError(f"{layer.kind} layers are not ported yet (ROADMAP A11)")
+        raise NotImplementedError(f"{layer.kind} layers are not ported yet (ROADMAP A7)")
     if layer.mlp == "moe":
-        raise NotImplementedError("MoE MLPs are not ported yet (ROADMAP A11)")
+        raise NotImplementedError("MoE MLPs are not ported yet (ROADMAP A7)")
 
 
 def block_spec(cfg: ModelConfig, layer: LayerSpec) -> dict:
@@ -73,7 +77,7 @@ def _attn_decode(params, h, cfg, layer: LayerSpec, cache: AttnCache, cache_len: 
     """One-token decode against a linear KV buffer, updated in place."""
     if layer.window is not None and cache.k.shape[1] == layer.window:
         raise NotImplementedError("ring KV buffers of windowed layers are not "
-                                  "ported yet (ROADMAP A11)")
+                                  "ported yet (ROADMAP A7)")
     out, (k_buf, v_buf) = attn_lib.attention(
         params, h, cfg, positions=positions, window=layer.window,
         cache=(cache.k, cache.v), cache_len=cache_len)
@@ -101,19 +105,32 @@ def _period(tree: Any, p: int) -> Any:
     return tree_map(lambda a: a[p], tree)
 
 
+def _period_forward(p_params: dict, layout: tuple[LayerSpec, ...], x: torch.Tensor,
+                    cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    """One period of the stack without caches (training)."""
+    for i, layer in enumerate(layout):
+        x, _ = block_apply(p_params[f"pos{i}"], layer, x, cfg, positions=positions)
+    return x
+
+
 def stage_apply(params: dict, layout: tuple[LayerSpec, ...], x: torch.Tensor,
                 cfg: ModelConfig, *, positions: torch.Tensor, caches: dict | None = None,
-                cache_len: int | None = None, prefill: bool = False):
+                cache_len: int | None = None, prefill: bool = False, remat: bool = False):
     """Run the stage's periods in order. Returns (x, new_caches).
 
     Prefill returns each layer's raw (k, v) stacked over periods; decode
-    returns ``caches`` itself, written in place; otherwise None.
+    returns ``caches`` itself, written in place; otherwise None. ``remat``
+    (no caches, not prefill) recomputes each period in the backward pass.
     """
     _, leaf = next(tree_leaves_with_path(params))
     periods = leaf.shape[0]
     raw: dict[str, list] = {f"pos{i}": [] for i in range(len(layout))}
     for p in range(periods):
         p_params = _period(params, p)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_period_forward, p_params, layout, x, cfg, positions,
+                           use_reentrant=False)
+            continue
         for i, layer in enumerate(layout):
             key = f"pos{i}"
             c = None if caches is None else _period(caches[key], p)

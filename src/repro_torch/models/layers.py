@@ -1,14 +1,14 @@
-"""Shared neural layers: RMSNorm, RoPE, SwiGLU MLP, embedding and LM head.
+"""Shared neural layers: norms, RoPE, SwiGLU MLP, embeddings, chunked CE.
 
 PyTorch counterpart of ``repro.models.layers``, with the same dtype
 handling: norms and RoPE compute in float32 and cast back to the input's
 dtype; the matrix products run in the compute dtype; logits are float32.
-``chunked_cross_entropy`` waits for the training slice (ROADMAP A11).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamSpec
@@ -69,3 +69,34 @@ def lm_head_spec(cfg: ModelConfig) -> dict:
 
 def logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return (h @ params["out"].to(h.dtype)).float()
+
+
+def _chunk_nll(hc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    lg = (hc @ w.to(hc.dtype)).float()
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, lc[..., None].long())[..., 0]
+    return torch.sum(lse - picked)
+
+
+def chunked_cross_entropy(params: dict, h: torch.Tensor, labels: torch.Tensor,
+                          cfg: ModelConfig, chunk: int = 512) -> torch.Tensor:
+    """Mean NLL over (B, S) without materializing (B, S, V) logits.
+
+    The sum runs over chunks of ``chunk`` positions (and the remainder), in
+    float32 and in order, as the JAX package's scan does. Each whole chunk
+    runs under ``torch.utils.checkpoint`` (JAX's per-chunk
+    ``jax.checkpoint``): only its (B, chunk, D) input is kept, and its
+    (B, chunk, V) logits are recomputed in the backward pass.
+    """
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    n_chunks = S // chunk
+    w = params["out"]
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        span = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(_chunk_nll, h[:, span], labels[:, span], w,
+                                   use_reentrant=False)
+    if S > n_chunks * chunk:
+        total = total + _chunk_nll(h[:, n_chunks * chunk:], labels[:, n_chunks * chunk:], w)
+    return total / (B * S)

@@ -1,11 +1,10 @@
-"""Top-level causal LM: parameter plan, prefill and single-token decode.
+"""Top-level causal LM: parameter plan, training loss, prefill and decode.
 
 PyTorch counterpart of ``repro.models.model`` for text models built of
 attention layers with dense MLPs. Parameters are the JAX package's tree as
 nested dicts of tensors, path for path (``stage0.pos0.attn.wq``, ...), so
 :func:`repro_torch.convert.params_from_arrays` carries JAX weights across
-unchanged. ``train_loss`` waits for the training slice, and the vision and
-audio frontends for theirs (ROADMAP A11).
+unchanged. The vision and audio frontends wait for their slice (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -18,14 +17,14 @@ import torch.nn.functional as F
 from repro_torch.models import blocks
 from repro_torch.models.blocks import AttnCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (embed, embedding_spec, lm_head_spec, logits,
-                                       rmsnorm, rmsnorm_spec)
+from repro_torch.models.layers import (chunked_cross_entropy, embed, embedding_spec,
+                                       lm_head_spec, logits, rmsnorm, rmsnorm_spec)
 
 
 def _check_frontend(cfg: ModelConfig) -> None:
     if cfg.frontend != "text":
         raise NotImplementedError(f"the {cfg.frontend} frontend is not ported yet "
-                                  "(ROADMAP A11)")
+                                  "(ROADMAP A7)")
 
 
 def model_spec(cfg: ModelConfig) -> dict:
@@ -44,15 +43,27 @@ def _input_embeds(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _forward_hidden(params, x, cfg, *, positions, caches=None, cache_len=None,
-                    prefill=False):
+                    prefill=False, remat=False):
     new_caches = []
     for si, (layout, _) in enumerate(cfg.stages()):
         c = None if caches is None else caches[si]
         x, nc = blocks.stage_apply(params[f"stage{si}"], layout, x, cfg,
                                    positions=positions, caches=c, cache_len=cache_len,
-                                   prefill=prefill)
+                                   prefill=prefill, remat=remat)
         new_caches.append(nc)
     return rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps), new_caches
+
+
+def train_loss(params: dict, batch: dict, cfg: ModelConfig, *,
+               remat: bool = True) -> torch.Tensor:
+    """Scalar float32 training loss: the mean next-token NLL of ``batch``
+    (``tokens``, ``labels`` (B, S)). The JAX package adds ``0.01 * aux``, the
+    MoE load-balancing term, which is 0 for the dense families ported here."""
+    x = _input_embeds(params, batch, cfg)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device, dtype=torch.int32)[None, :]
+    h, _ = _forward_hidden(params, x, cfg, positions=positions, remat=remat)
+    return chunked_cross_entropy(params["lm_head"], h, batch["labels"], cfg)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype,

@@ -86,6 +86,28 @@ def tree_leaves_with_path(tree: PyTree, prefix: str = "") -> Iterator[tuple[str,
         yield prefix, tree
 
 
+def tree_flatten(tree: PyTree) -> tuple[list, Callable[[list], PyTree]]:
+    """The leaves of a nested dict in the JAX package's order (keys sorted at
+    every level, as ``jax.tree.leaves`` takes them), and a function that
+    builds the same nesting around a list of new leaves in that order."""
+    leaves: list = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        leaves.append(t)
+        return len(leaves) - 1
+
+    skeleton = walk(tree)
+
+    def unflatten(new: list) -> PyTree:
+        def build(s):
+            return {k: build(v) for k, v in s.items()} if isinstance(s, dict) else new[s]
+        return build(skeleton)
+
+    return leaves, unflatten
+
+
 def stack_specs(spec: PyTree, num: int) -> PyTree:
     """Prepend a ``layers`` axis of size ``num`` to every leaf."""
     return tree_map(lambda s: ParamSpec((num, *s.shape), s.dtype, ("layers", *s.axes),

@@ -509,6 +509,74 @@ def test_flash_kernel_bf16_agrees_with_sdpa_at_the_serve_shape(cuda):
                                rtol=0, atol=3e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,hd", [(63, 64), (1000, 128)])
+@pytest.mark.parametrize("G", [1, 4, 5, 8])
+def test_flash_kernel_lse_matches_plain(cuda, G, S, hd, causal, dtype):
+    """The log-sum-exp of both kernels (G = 4 is phi3's) against the plain
+    version's ``logsumexp``; asking for it leaves the output bit for bit as
+    it was and is still one launch. Tolerance: the kernels sum the scores'
+    exponentials per tile (the bf16 kernel in exp2 units), so rtol 1e-5 /
+    atol 2e-5 in float32 and atol 1e-4 in bfloat16 (the scores are exact
+    products of bf16 values in both)."""
+    q, k, v = _flash_inputs(2, S, 2, G, hd, cuda, dtype)
+    before = ops.LAUNCHES["flash_attention_fwd"]
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    assert ops.LAUNCHES["flash_attention_fwd"] == before + 1
+    assert lse.shape == (2, 2, G, S) and lse.dtype == torch.float32
+    _, want = ref.flash_attention_fwd_ref(q, k, v, causal=causal, return_lse=True)
+    atol = 2e-5 if dtype == torch.float32 else 1e-4
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=atol)
+    assert torch.equal(out, ops.flash_attention_fwd(q, k, v, causal=causal))
+
+
+def test_training_step_on_the_kernel_matches_the_plain_forward(cuda, monkeypatch):
+    """codeqwen1.5-7b reduced in float32 on the card: the loss and gradients
+    of the kernel path against the same step with the plain forward
+    (``ref.flash_attention_fwd_ref`` put in the wrapper's place), then one
+    ACPD train step of each. Loss rtol 1e-5; each gradient leaf within 2e-3
+    of its largest entry (the saturated attention at this init, see
+    ``tests/test_torch_train.py``); the exchange's participation and dense
+    step equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import exchange as tex
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    from repro_torch.models.param import tree_flatten, tree_map, tree_materialize
+    from repro_torch.optim import optimizers
+
+    cfg = get_config("codeqwen1.5-7b").reduced()
+    base = tree_materialize(model.model_spec(cfg), torch.Generator(cuda).manual_seed(0), cuda)
+    batch = TokenPipeline(cfg, 8, 64, seed=1, device=cuda).next_batch()
+    setup = steps.TrainSetup(cfg=cfg, optimizer=optimizers.OptimizerConfig(warmup_steps=1),
+                             exchange=tex.ExchangeConfig(num_groups=4, group_size=2, rho=1 / 64))
+    results = []
+    for path in ("kernel", "plain"):
+        if path == "plain":
+            monkeypatch.setattr(ops, "flash_attention_fwd",
+                                lambda q, k, v, **kw: ref.flash_attention_fwd_ref(q, k, v, **kw))
+        params = tree_map(torch.clone, base)
+        before = ops.LAUNCHES["flash_attention_fwd"]
+        loss, grads = steps.value_and_grad(
+            lambda p, b: model.train_loss(p, b, cfg), params, batch)
+        step = steps.build_train_step(setup, cuda)
+        state = (optimizers.init_state(setup.optimizer, params),
+                 tex.init_state(setup.exchange, params))
+        _, _, _, m = step(params, *state, batch)
+        launched = ops.LAUNCHES["flash_attention_fwd"] - before
+        results.append((loss, tree_flatten(grads)[0], m, launched))
+    (l_k, g_k, m_k, n_k), (l_p, g_p, m_p, n_p) = results
+    assert n_k == 2 * 2 + (1 + 2 * 4) * 2 and n_p == 0  # the kernel ran on every layer
+    torch.testing.assert_close(l_k, l_p, rtol=1e-5, atol=0)
+    for a, b in zip(g_k, g_p):
+        assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max())
+    torch.testing.assert_close(m_k["loss"], m_p["loss"], rtol=1e-5, atol=0)
+    for key in ("exchange/participating", "exchange/dense_step"):
+        assert float(m_k[key]) == float(m_p[key])
+
+
 def test_flash_kernel_takes_prescaled_q(cuda):
     q, k, v = _flash_inputs(1, 130, 2, 5, 64, cuda)
     torch.testing.assert_close(ops.flash_attention_fwd(q * 0.125, k, v, sm_scale=1.0),
