@@ -45,7 +45,18 @@ one step of the kernel path against the plain forward and the dense exchange
 against the plain gradient, and resume the run from its step-6 checkpoint
 bit for bit; ``kernel_flash_attention_lse`` holds the kernel's output and
 log-sum-exp against the plain version's at the serve shape and the training
-path's two shapes. It also checks that
+path's two shapes. First of all, while the card holds nothing else, the MoE
+and SSM serve paths run: qwen3-moe-30b-a3b (48 layers, 128 experts, 61.09
+GB of bf16 weights) and mamba2-780m (48 SSD layers) at full width and depth
+through ``serve.generate`` with the serve path's batch, prompt and tokens
+(the MoE line also gives the first MoE layer's prefill routing: slots
+dropped at capacity 648, the most-loaded expert), each one's prefill held
+against prefill plus a decode step at 2 layers in float32 (the MoE one at
+capacity factor 16, where nothing drops; the SSM one, the chunked SSD
+against the recurrence, at JAX's SSD tolerances), and jamba's reduced
+hybrid stack (attention, SSD, dense and MoE layers in one period) on the
+card against the host; ``kernel_flash_attention_moe`` times the flash
+kernel at qwen3-moe's GQA shape (KV 4, G 8). It also checks that
 the bfloat16 flash kernel was compiled to tensor-core (HGMMA) and TMA
 instructions, and that one top-k filter call runs at most four kernels
 without a host sync. Launch counts are zeroed just before each path and
@@ -100,6 +111,21 @@ ENGINE_GAP_RTOL = 1e-4
 # 2 layers in float32.
 SERVE_ARCH, SERVE_B, SERVE_PLEN, SERVE_GEN = "qwen3-14b", 4, 2048, 16
 CONSIST_LAYERS = 2
+# The MoE and SSM serve paths: qwen3-moe-30b-a3b (61.09 GB of weights) and
+# mamba2-780m at full width and depth, with the serve path's batch, prompt and
+# tokens; their consistency checks at 2 layers in float32, the MoE one at
+# capacity factor 16 (C > N: no slot drops, so the 2049-token prefill and the
+# 2048-token prefill plus a decode step route alike); the SSM one at JAX's own
+# SSD tolerances (tests/test_ssm.py). The hybrid stack: jamba's reduced()
+# config (16 layers, 4 experts, float32), card against host, prefill of
+# HYBRID_PLEN tokens and HYBRID_STEPS decode steps. Its float32 logits move
+# by 1.4e-4 to 8e-4 on the host itself when every SSD step size dt moves by
+# one ulp (both inits), more than a fixed 1e-4: the card must stay within
+# HYBRID_BAND times that shift, measured in the same run.
+MOE_ARCH, SSM_ARCH, HYBRID_ARCH = "qwen3-moe-30b-a3b", "mamba2-780m", "jamba-1.5-large-398b"
+MOE_CONSIST_CF = 16.0
+SSM_RTOL, SSM_ATOL = 1e-4, 2e-5
+HYBRID_B, HYBRID_PLEN, HYBRID_STEPS, HYBRID_TOL, HYBRID_BAND = 2, 256, 3, 1e-4, 3.0
 
 # The training path: codeqwen1.5-7b at full width, depth cut from 32 to 2
 # layers (the K = 4 float32 residuals alone are 16 B a parameter: at 32
@@ -194,6 +220,223 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def attention_layers(cfg) -> int:
+    """Attention layers in the stack: the flash launches of one prefill."""
+    return sum(periods * sum(l.kind == "attn" for l in layout)
+               for layout, periods in cfg.stages())
+
+
+def serve_path(phase: str, cfg, dev: torch.device) -> dict[str, int]:
+    """Serve ``cfg`` at its width and depth through ``serve.generate``.
+
+    Weights from ``SEED`` on the card, SERVE_B Zipf prompts of SERVE_PLEN
+    tokens, one 2-token warm-up (cuBLAS, the allocator; for a MoE model it
+    also records the first MoE layer's prefill routing), then SERVE_GEN
+    tokens with the launch counts zeroed just before and read just after.
+    Emits one line, checks it, frees the weights; returns the launches."""
+    import gc
+
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model_spec
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.param import tree_materialize
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    params = tree_materialize(model_spec(cfg), torch.Generator(device=dev).manual_seed(SEED),
+                              dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = make_token_dataset(SERVE_B * SERVE_PLEN, cfg.vocab_size, 0).reshape(
+        SERVE_B, SERVE_PLEN)
+    routings, real_route = [], moe_lib.route
+    if cfg.num_experts:
+        moe_lib.route = lambda *a: routings.append(real_route(*a)) or routings[-1]
+    try:
+        serve.generate(params, prompts, cfg, 2, device=dev)  # warm-up
+    finally:
+        moe_lib.route = real_route
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    gen_res = serve.generate(params, prompts, cfg, SERVE_GEN, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    extra = {}
+    if routings:  # the first MoE layer's prefill (N = B x prompt tokens)
+        r = routings[0]
+        load = torch.bincount(r.top_e.reshape(-1), minlength=cfg.num_experts)
+        extra = dict(experts=cfg.num_experts, top_k=cfg.experts_per_token,
+                     capacity=moe_lib.capacity(SERVE_B * SERVE_PLEN, cfg),
+                     capacity_factor=cfg.moe_capacity_factor,
+                     layer0_slots_dropped_share=float((~r.keep).float().mean()),
+                     layer0_max_expert_load=int(load.max()),
+                     layer0_experts_unused=int((load == 0).sum()),
+                     layer0_aux=float(r.aux))
+    want_flash = attention_layers(cfg)
+    emit(phase, arch=cfg.arch_id, layers=cfg.num_layers, d_model=cfg.d_model,
+         dtype=cfg.param_dtype, batch=SERVE_B, prompt_len=SERVE_PLEN, gen=SERVE_GEN,
+         max_seq=SERVE_PLEN + SERVE_GEN, mem_before_gb=mem_before, init_s=init_s,
+         prefill_s=gen_res.prefill_s,
+         decode_ms_per_token=gen_res.decode_s / (SERVE_GEN - 1) * 1e3, wall_s=wall,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         prefill_flash_launches=gen_res.prefill_flash_launches,
+         decode_flash_launches=gen_res.decode_flash_launches,
+         logits_finite=gen_res.logits_finite, tokens_row0=gen_res.tokens[0].tolist(),
+         launches=launches, **extra)
+    check(gen_res.prefill_flash_launches == want_flash,
+          f"{phase}: prefill launched the flash kernel {gen_res.prefill_flash_launches} "
+          f"times, want one per attention layer ({want_flash})")
+    check(gen_res.decode_flash_launches == 0, f"{phase}: decode launched no flash kernel")
+    check(launches["flash_attention_fwd"] == want_flash,
+          f"{phase}: the path launched the flash kernel once per attention layer")
+    check(gen_res.logits_finite, f"{phase}: all logits finite")
+    check(gen_res.tokens.shape == (SERVE_B, SERVE_GEN), f"{phase}: generated (B, gen) tokens")
+    del params, routings
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def consistency_path(phase: str, cfg, dev: torch.device, rtol: float, atol: float,
+                     **fields) -> dict[str, int]:
+    """Logits at position SERVE_PLEN from one prefill over SERVE_PLEN + 1
+    tokens (a ragged last tile, chunk) against a prefill over SERVE_PLEN and
+    one decode step, on the card, weights from ``SEED``."""
+    import gc
+
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, model_spec, prefill
+    from repro_torch.models.param import tree_materialize
+
+    p2 = tree_materialize(model_spec(cfg), torch.Generator(device=dev).manual_seed(SEED), dev)
+    toks = torch.as_tensor(make_token_dataset(SERVE_PLEN + 1, cfg.vocab_size, 1),
+                           device=dev).long()[None]
+    ops.reset_launch_counts()
+    whole, _, _ = prefill(p2, {"tokens": toks}, cfg, max_seq=SERVE_PLEN + 1)
+    _, caches, plen = prefill(p2, {"tokens": toks[:, :SERVE_PLEN]}, cfg,
+                              max_seq=SERVE_PLEN + 1)
+    stepped, _ = decode_step(p2, toks[:, SERVE_PLEN], caches, plen + 1, cfg)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    diff = float((whole - stepped).abs().max())
+    close = bool(torch.allclose(stepped, whole, rtol=rtol, atol=atol))
+    same = bool(torch.equal(whole.argmax(-1), stepped.argmax(-1)))
+    emit(phase, arch=cfg.arch_id, layers=cfg.num_layers, dtype=cfg.param_dtype, batch=1,
+         prompt_len=SERVE_PLEN + 1, max_abs_diff=diff,
+         max_abs_logit=float(whole.abs().max()), rtol=rtol, atol=atol, within=close,
+         same_argmax=same, launches=launches, **fields)
+    check(launches["flash_attention_fwd"] == 2 * attention_layers(cfg),
+          f"{phase}: both prefills used the kernel once per attention layer")
+    check(close, f"{phase}: prefill over S+1 tokens agrees with prefill over S plus one "
+          "decode step")
+    check(same, f"{phase}: the same argmax")
+    del p2, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fan_in_params(params: dict, cfg) -> dict:
+    """``params`` with every stacked ``normal`` leaf of the init rule (drawn
+    with std 1/sqrt(layers), ROADMAP C3) rescaled to std 1/sqrt(fan_in), its
+    second-to-last dim: the same draw at a well-conditioned scale."""
+    from repro_torch.models import model_spec
+
+    def rescale(p, s):
+        if isinstance(p, dict):
+            return {k: rescale(p[k], s[k]) for k in p}
+        if s.init == "normal" and s.scale is None and len(s.shape) >= 3:
+            return (p.float() * math.sqrt(s.shape[0] / s.shape[-2])).to(p.dtype)
+        return p
+
+    return rescale(params, model_spec(cfg))
+
+
+def hybrid_small(dev: torch.device) -> dict[str, int]:
+    """jamba's reduced() stack (attention, SSD, dense and MoE layers in one
+    period), float32, at the init rule's weights and at the fan-in init
+    (``fan_in_params``): prefill and HYBRID_STEPS decode steps (fed the next
+    prompt-stream tokens) on the card against the same on the host, the
+    flash kernel once per attention layer per prefill on the card. The
+    card's largest logit difference must stay within HYBRID_BAND times the
+    host's own under a one-ulp shift of every SSD step size dt (the
+    stack's rounding sensitivity, measured here), with the same argmax at
+    every step; agreement within HYBRID_TOL is printed beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, model_spec, prefill
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.param import tree_map, tree_materialize
+
+    cfg = get_config(HYBRID_ARCH).reduced()
+    cpu = torch.device("cpu")
+    stream = torch.as_tensor(make_token_dataset(
+        HYBRID_B * (HYBRID_PLEN + HYBRID_STEPS), cfg.vocab_size, 2)).long().reshape(
+            HYBRID_B, HYBRID_PLEN + HYBRID_STEPS)
+
+    def run(params, where):
+        toks = stream.to(where)
+        logits, caches, plen = prefill(params, {"tokens": toks[:, :HYBRID_PLEN]}, cfg,
+                                       max_seq=HYBRID_PLEN + HYBRID_STEPS)
+        out = [logits]
+        for i in range(HYBRID_STEPS):
+            logits, caches = decode_step(params, toks[:, HYBRID_PLEN + i], caches,
+                                         plen + 1 + i, cfg)
+            out.append(logits)
+        return [t.cpu() for t in out]
+
+    def max_diffs(a, b):
+        return [float((x - y).abs().max()) for x, y in zip(a, b)]
+
+    rows = {}
+    ops.reset_launch_counts()  # the host's runs launch nothing
+    for init in ("rule", "fan_in"):
+        p_cpu = tree_materialize(model_spec(cfg), torch.Generator().manual_seed(SEED), cpu)
+        if init == "fan_in":
+            p_cpu = fan_in_params(p_cpu, cfg)
+        want = run(p_cpu, cpu)
+        got = run(tree_map(lambda t: t.to(dev), p_cpu), dev)
+        torch.cuda.synchronize()
+        real = ssm_lib._softplus
+        ssm_lib._softplus = lambda x: real(x) * (1 + 2**-23)
+        try:
+            shifted = max_diffs(run(p_cpu, cpu), want)
+        finally:
+            ssm_lib._softplus = real
+        diffs, band = max_diffs(got, want), HYBRID_BAND * max(shifted)
+        rows[init] = dict(
+            max_abs_diff_by_step=diffs, host_dt_one_ulp_max_abs_diff_by_step=shifted,
+            band=band, within_band=max(diffs) <= band,
+            max_abs_logit=float(max(w.abs().max() for w in want)),
+            within_tol=[bool(torch.allclose(g, w, rtol=HYBRID_TOL, atol=HYBRID_TOL))
+                        for g, w in zip(got, want)],
+            same_argmax=[bool(torch.equal(g.argmax(-1), w.argmax(-1)))
+                         for g, w in zip(got, want)])
+    launches = dict(ops.LAUNCHES)
+    emit("hybrid_small", arch=cfg.arch_id, reduced=True, layers=cfg.num_layers,
+         d_model=cfg.d_model, experts=cfg.num_experts,
+         period=[f"{l.kind}+{l.mlp}" for l in cfg.layout], dtype=cfg.param_dtype,
+         batch=HYBRID_B, prompt_len=HYBRID_PLEN, decode_steps=HYBRID_STEPS,
+         band_factor=HYBRID_BAND, tol=HYBRID_TOL, launches=launches, **rows)
+    check(launches["flash_attention_fwd"] == 2 * attention_layers(cfg),
+          f"hybrid_small: each card prefill launched the flash kernel once per attention "
+          f"layer ({attention_layers(cfg)}), got {launches['flash_attention_fwd']} in two")
+    for init, row in rows.items():
+        check(row["within_band"], f"hybrid_small: card within {HYBRID_BAND} x the host's "
+              f"one-ulp shift of the host ({init}: {max(row['max_abs_diff_by_step'])} against "
+              f"{row['band']})")
+        check(all(row["same_argmax"]), f"hybrid_small: the same argmax at every step ({init})")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -204,11 +447,9 @@ def main() -> int:
     from repro_torch.core import acpd, baselines, engine, filter as msg_filter, objectives, sdca
     from repro_torch.core.simulate import ClusterModel
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import make_token_dataset
     from repro_torch.kernels import _build, ops, ref, sdca_inner as sdca_mod
     from repro_torch.kernels import topk_filter as topk_mod
-    from repro_torch.launch import serve
-    from repro_torch.models import decode_step, model_spec, prefill
+    from repro_torch.models import model_spec
     from repro_torch.models.param import tree_materialize
 
     dev = torch.device("cuda")
@@ -247,6 +488,25 @@ def main() -> int:
         check(hgmma > 0, "the flash library holds HGMMA instructions")
     else:
         emit("flash_sass", cuobjdump=None, has_hgmma=None, note="no cuobjdump on this machine")
+
+    # -- main path 7: serve the MoE and SSM models at full width and depth ---
+    # First, while the card holds nothing else: qwen3-moe-30b-a3b's weights
+    # alone are 61.09 GB. Then the consistency checks and the hybrid stack.
+    launches: dict[str, dict[str, int]] = {}
+    launches["serve_moe"] = serve_path("serve_moe", get_config(MOE_ARCH), dev)
+    consistency_path(
+        "serve_consistency_moe", dataclasses.replace(
+            get_config(MOE_ARCH), num_layers=CONSIST_LAYERS, param_dtype="float32",
+            compute_dtype="float32", moe_capacity_factor=MOE_CONSIST_CF),
+        dev, 1e-3, 1e-3, moe_capacity_factor=MOE_CONSIST_CF,
+        note="capacity factor 16: C > N, so no slot drops in either prefill")
+    launches["serve_ssm"] = serve_path("serve_ssm", get_config(SSM_ARCH), dev)
+    consistency_path(
+        "serve_consistency_ssm", dataclasses.replace(
+            get_config(SSM_ARCH), num_layers=CONSIST_LAYERS, param_dtype="float32",
+            compute_dtype="float32"),
+        dev, SSM_RTOL, SSM_ATOL, note="chunked SSD against the one-step recurrence")
+    launches["hybrid_small"] = hybrid_small(dev)
 
     # -- the main problem: rcv1_like at RCV1 width, on the card --------------
     t0 = time.perf_counter()
@@ -572,7 +832,6 @@ def main() -> int:
               f"engine {name} on the card agrees with the host")
     emit("engine_small_parity", rtol=1e-4, by_protocol=parity)
 
-    launches: dict[str, dict[str, int]] = {}
     cluster = ClusterModel(K, straggler_sigma=10.0)
 
     # -- main path 1: ACPD (Algorithms 1 + 2) at RCV1 width ------------------
@@ -1524,14 +1783,17 @@ def main() -> int:
     gc.collect()  # the services and replicas hold their problems in reference cycles
     torch.cuda.empty_cache()
 
-    # -- kernel 3: flash_attention_fwd at the serve shape and a ragged S -----
+    # -- kernel 3: flash_attention_fwd at the serve shapes and a ragged S ----
     flash_err = {"float32": 0.0, "bfloat16": 0.0}
     tol = {"float32": 1e-5, "bfloat16": 3e-2}
     serve_shape = dict(B=SERVE_B, S=SERVE_PLEN, KV=8, G=5, hd=128)  # qwen3-14b's GQA
+    moe_shape = dict(B=SERVE_B, S=SERVE_PLEN, KV=4, G=8, hd=128)  # qwen3-moe-30b-a3b's
+    moe_err = {}
     cases = [(dict(serve_shape, B=2, S=1000), dt, c)
              for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
     # The tensor-core kernel at another head dim (its swizzle) and G = 1.
     cases += [(dict(B=2, S=1000, KV=8, G=1, hd=64), torch.bfloat16, c) for c in (True, False)]
+    cases += [(moe_shape, dt, True) for dt in (torch.float32, torch.bfloat16)]
     cases += [(serve_shape, dt, True) for dt in (torch.float32, torch.bfloat16)]
     for shape, dtype, causal in cases:
         B_, S_, KV_, G_, hd_ = (shape[k] for k in ("B", "S", "KV", "G", "hd"))
@@ -1547,39 +1809,56 @@ def main() -> int:
         within = bool(torch.allclose(out.float(), want.float(), rtol=rtol, atol=tol[name]))
         bitwise = bool(torch.equal(out, ops.flash_attention_fwd(q, k_, v_, causal=causal)))
         flash_err[name] = max(flash_err[name], err)
+        if shape == moe_shape:
+            moe_err[name] = err
         emit("kernel_flash_attention_check", shape=shape, dtype=name, causal=causal,
              max_abs_err=err, rtol=rtol, atol=tol[name], within=within,
              repeat_bitwise=bitwise)
         check(within, f"flash_attention_fwd within tolerance ({shape}, {name}, {causal})")
         check(bitwise, f"flash_attention_fwd repeats bit for bit ({shape}, {name})")
-    # Timing at the serve shape, bfloat16, causal: the kernel, the plain
-    # version, and SDPA on the (B, H, S, hd) layout (timed only, never used).
-    ms = time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, causal=True), warmup=2, reps=10)
-    plain_ms = time_ms(lambda: ref.flash_attention_fwd_ref(q, k_, v_, causal=True),
-                       warmup=1, reps=3)
-    B_, S_, KV_, G_, hd_ = q.shape
-    qs = q.reshape(B_, S_, KV_ * G_, hd_).transpose(1, 2).contiguous()
-    ks, vs = k_.transpose(1, 2).contiguous(), v_.transpose(1, 2).contiguous()
+        if shape == moe_shape and dtype == torch.bfloat16:
+            moe_qkv = (q, k_, v_)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True),
-                         warmup=2, reps=10)
-    sdpa_err = float((sdpa(qs, ks, vs, is_causal=True, enable_gqa=True).transpose(1, 2)
-                      .reshape(q.shape).float() - out.float()).abs().max())
-    flops = 4 * B_ * KV_ * G_ * hd_ * S_ * (S_ + 1) // 2  # q.k and p.v on the causal half
-    nbytes = 2 * q.numel() * q.element_size() + 2 * k_.numel() * k_.element_size()
-    bound_ms = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+
+    def flash_times(q, k_, v_) -> dict:
+        """bfloat16, causal: the kernel, the plain version, and SDPA on the
+        (B, H, S, hd) layout (timed only, never used), beside the bound."""
+        out = ops.flash_attention_fwd(q, k_, v_, causal=True)
+        ms = time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, causal=True), warmup=2,
+                     reps=10)
+        plain_ms = time_ms(lambda: ref.flash_attention_fwd_ref(q, k_, v_, causal=True),
+                           warmup=1, reps=3)
+        B_, S_, KV_, G_, hd_ = q.shape
+        qs = q.reshape(B_, S_, KV_ * G_, hd_).transpose(1, 2).contiguous()
+        ks, vs = k_.transpose(1, 2).contiguous(), v_.transpose(1, 2).contiguous()
+        library_ms = time_ms(lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True),
+                             warmup=2, reps=10)
+        sdpa_err = float((sdpa(qs, ks, vs, is_causal=True, enable_gqa=True).transpose(1, 2)
+                          .reshape(q.shape).float() - out.float()).abs().max())
+        flops = 4 * B_ * KV_ * G_ * hd_ * S_ * (S_ + 1) // 2  # q.k and p.v on the causal half
+        nbytes = 2 * q.numel() * q.element_size() + 2 * k_.numel() * k_.element_size()
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                    library_max_abs_diff=sdpa_err,
+                    bound_ms=max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3,
+                    bound_by="operations" if flops / PEAK_BF16 >= nbytes / PEAK_BYTES
+                    else "bytes", bound_flops=flops, bound_bytes=nbytes,
+                    achieved_tflops=flops / (ms * 1e-3) / 1e12)
+
+    at_serve = flash_times(q, k_, v_)  # the last case: the serve shape, bf16
     kernels["flash_attention_fwd"] = dict(
         name="flash_attention_fwd", route="cuda", source="src/repro_torch/csrc/flash_attn.cu",
         replaces="src/repro/kernels/flash_attn.py:86",
-        max_abs_err=max(flash_err.values()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="operations" if flops / PEAK_BF16 >= nbytes / PEAK_BYTES else "bytes",
-        library_ms=library_ms)
+        max_abs_err=max(flash_err.values()),
+        **{k: at_serve[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     emit("kernel_flash_attention", shape=serve_shape, dtype="bfloat16", causal=True,
-         max_abs_err_by_dtype=flash_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+         max_abs_err_by_dtype=flash_err,
          library="scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-         library_max_abs_diff=sdpa_err, bound_ms=bound_ms, bound_flops=flops,
-         bound_bytes=nbytes, achieved_tflops=flops / (ms * 1e-3) / 1e12)
-    del q, k_, v_, out, want, qs, ks, vs
+         **at_serve)
+    at_moe = flash_times(*moe_qkv)
+    emit("kernel_flash_attention_moe", shape=moe_shape, dtype="bfloat16", causal=True,
+         max_abs_err_by_dtype=moe_err,
+         library="scaled_dot_product_attention(is_causal=True, enable_gqa=True)", **at_moe)
+    del q, k_, v_, out, want, moe_qkv
     torch.cuda.empty_cache()
 
     # -- kernel 3b: the flash kernel at the training path's shapes, with lse --
@@ -1591,7 +1870,7 @@ def main() -> int:
     # the launches timed.
     lse_tol = {"float32": 2e-5, "bfloat16": 1e-4}
     lse_err = {"float32": 0.0, "bfloat16": 0.0}
-    out_err = {"float32": 0.0, "bfloat16": 0.0}
+    out_err = {}  # by shape and dtype
     lse_ms = {}
     train_shape = dict(B=TRAIN_B // 4, S=TRAIN_SEQ, KV=32, G=1, hd=128)
     for label, shape, with_lse in (("serve", serve_shape, True), ("train", train_shape, True),
@@ -1617,7 +1896,7 @@ def main() -> int:
             o_err = float((out.float() - want_out.float()).abs().max())
             o_within = bool(torch.allclose(out.float(), want_out.float(), rtol=rtol,
                                            atol=tol[name]))
-            out_err[name] = max(out_err[name], o_err)
+            out_err[f"{label}_{name}"] = o_err
             flash_err[name] = max(flash_err[name], o_err)
             row.update(out_max_abs_err=o_err, out_rtol=rtol, out_atol=tol[name],
                        out_within=o_within)
@@ -1645,6 +1924,10 @@ def main() -> int:
             emit("kernel_flash_attention_lse", **row, ms_without_lse=without_ms,
                  plain_ms=plain_ms)
             del q, k_, v_, out, want_out
+    out_err.update({f"moe_{name}": err for name, err in moe_err.items()})
+    lse_ms["moe_bfloat16"] = dict(with_lse=None, without_lse=at_moe["ms"],
+                                  plain=at_moe["plain_ms"], library=at_moe["library_ms"],
+                                  bound=at_moe["bound_ms"])
     kernels["flash_attention_fwd"].update(
         max_abs_err=max(flash_err.values()), out_max_abs_err_by_shape=out_err,
         lse_max_abs_err=lse_err, ms_with_lse=lse_ms["serve_bfloat16"]["with_lse"],
@@ -1653,65 +1936,12 @@ def main() -> int:
 
     # -- main path 4: serve qwen3-14b at full width and depth ----------------
     cfg = get_config(SERVE_ARCH)
-    t0 = time.perf_counter()
-    params = tree_materialize(model_spec(cfg), torch.Generator(device=dev).manual_seed(SEED),
-                              dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    prompts = make_token_dataset(SERVE_B * SERVE_PLEN, cfg.vocab_size, 0).reshape(
-        SERVE_B, SERVE_PLEN)
-    serve.generate(params, prompts, cfg, 2, device=dev)  # warm-up: cuBLAS, allocator
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    gen_res = serve.generate(params, prompts, cfg, SERVE_GEN, device=dev)
-    wall = time.perf_counter() - t0
-    launches["serve"] = dict(ops.LAUNCHES)
-    emit("serve", arch=cfg.arch_id, layers=cfg.num_layers, d_model=cfg.d_model,
-         dtype=cfg.param_dtype, batch=SERVE_B, prompt_len=SERVE_PLEN, gen=SERVE_GEN,
-         max_seq=SERVE_PLEN + SERVE_GEN, init_s=init_s, prefill_s=gen_res.prefill_s,
-         decode_ms_per_token=gen_res.decode_s / (SERVE_GEN - 1) * 1e3, wall_s=wall,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         prefill_flash_launches=gen_res.prefill_flash_launches,
-         decode_flash_launches=gen_res.decode_flash_launches,
-         logits_finite=gen_res.logits_finite, tokens_row0=gen_res.tokens[0].tolist(),
-         launches=launches["serve"])
-    check(gen_res.prefill_flash_launches == cfg.num_layers,
-          f"prefill launched the flash kernel {gen_res.prefill_flash_launches} times")
-    check(gen_res.decode_flash_launches == 0, "decode launched no flash kernel")
-    check(launches["serve"]["flash_attention_fwd"] == cfg.num_layers,
-          "the serve path launched the flash kernel once per layer")
-    check(gen_res.logits_finite, "all logits finite")
-    check(gen_res.tokens.shape == (SERVE_B, SERVE_GEN), "generated (B, gen) tokens")
-    del params
-    torch.cuda.empty_cache()
+    launches["serve"] = serve_path("serve", cfg, dev)
 
     # -- the kernel's prefill against the cache's decode, on the card --------
-    # Logits at position 2048 from one prefill over 2049 tokens (a ragged
-    # last tile) and from prefill over 2048 then one decode step.
-    cfg2 = dataclasses.replace(cfg, num_layers=CONSIST_LAYERS, param_dtype="float32",
-                               compute_dtype="float32")
-    p2 = tree_materialize(model_spec(cfg2), torch.Generator(device=dev).manual_seed(SEED),
-                          dev)
-    toks = torch.as_tensor(make_token_dataset(SERVE_PLEN + 1, cfg2.vocab_size, 1),
-                           device=dev).long()[None]
-    ops.reset_launch_counts()
-    whole, _, _ = prefill(p2, {"tokens": toks}, cfg2, max_seq=SERVE_PLEN + 1)
-    _, caches, plen = prefill(p2, {"tokens": toks[:, :SERVE_PLEN]}, cfg2,
-                              max_seq=SERVE_PLEN + 1)
-    stepped, _ = decode_step(p2, toks[:, SERVE_PLEN], caches, plen + 1, cfg2)
-    torch.cuda.synchronize()
-    consist = dict(ops.LAUNCHES)
-    diff = float((whole - stepped).abs().max())
-    close = bool(torch.allclose(stepped, whole, rtol=1e-3, atol=1e-3))
-    emit("serve_consistency", layers=CONSIST_LAYERS, dtype="float32", batch=1,
-         prompt_len=SERVE_PLEN + 1, max_abs_diff=diff, rtol=1e-3, atol=1e-3,
-         within=close, same_argmax=bool(torch.equal(whole.argmax(-1), stepped.argmax(-1))),
-         launches=consist)
-    check(consist["flash_attention_fwd"] == 2 * CONSIST_LAYERS, "both prefills used the kernel")
-    check(close, "prefill over S+1 tokens agrees with prefill over S plus one decode step")
-    del p2, caches
-    torch.cuda.empty_cache()
+    consistency_path("serve_consistency", dataclasses.replace(
+        cfg, num_layers=CONSIST_LAYERS, param_dtype="float32", compute_dtype="float32"),
+        dev, 1e-3, 1e-3)
 
     # -- main path 6: ACPD-exchange training of codeqwen1.5-7b ---------------
     # The CLI's setup (python -m repro_torch.launch.train --arch codeqwen1.5-7b
@@ -1858,17 +2088,11 @@ def main() -> int:
             ops.flash_attention_fwd = kernel_fwd
         return out
 
-    def fan_in(path, t):
-        if path.startswith("stage") and t.dim() == 3:
-            return (t.float() * math.sqrt(t.shape[0] / t.shape[1])).to(t.dtype)
-        return t
-
     checks = {}
     for init in ("rule", "fan_in"):
         params = fresh_params()
         if init == "fan_in":
-            flat = dict(tree_leaves_with_path(params))
-            params = tree_flatten(params)[1]([fan_in(p, flat[p]) for p in paths])
+            params = fan_in_params(params, tcfg)
         ops.reset_launch_counts()
         loss_k, grads_k = train_steps.value_and_grad(lambda p, b: train_loss(p, b, tcfg),
                                                      params, cbatch)

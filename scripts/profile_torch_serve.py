@@ -1,9 +1,10 @@
 #!/usr/bin/env python
-"""Where the time goes when the port serves qwen3-14b on one CUDA card.
+"""Where the time goes when the port serves a model on one CUDA card.
 
-Builds the serve path of ``chip_smoke.py`` (qwen3-14b at full width and
-depth, bfloat16, random weights from the same seed; batch 4, a 2048-token
-prompt, 16 tokens), runs it once to warm up, then profiles one prefill and
+Builds a serve path of ``chip_smoke.py`` (``--arch``, default qwen3-14b; also
+qwen3-moe-30b-a3b or mamba2-780m: full width and depth, bfloat16, random
+weights from the same seed; batch 4, a 2048-token prompt, 16 tokens), runs
+it once to warm up, then profiles one prefill and
 the 15 decode steps under ``torch.profiler`` as two windows. It prints one
 JSON object: for each window the wall time, the device's busy time (the sum
 of kernel times; the path runs on one stream), the idle share, and the
@@ -12,7 +13,7 @@ kernels by device time. ``--trace PREFIX`` also writes the Chrome traces
 
 Run from the repo root on a machine with a card:
 
-    python3 scripts/profile_torch_serve.py [--trace PREFIX]
+    python3 scripts/profile_torch_serve.py [--arch ARCH] [--trace PREFIX]
 """
 
 from __future__ import annotations
@@ -45,11 +46,12 @@ def _window(prof, wall_s: float) -> dict:
             "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
             "kernel_launches": sum(r[1] for r in kernels),
             "kernels": [{"name": n[:120], "count": c, "device_ms": us / 1e3}
-                        for n, c, us in kernels[:15]]}
+                        for n, c, us in kernels[:20]]}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--arch", default="qwen3-14b")
     parser.add_argument("--trace", type=str, default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -64,7 +66,7 @@ def main() -> int:
     from repro_torch.models.param import tree_materialize
 
     dev = torch.device("cuda")
-    cfg = get_config(smoke.SERVE_ARCH)
+    cfg = get_config(args.arch)
     B, plen, gen = smoke.SERVE_B, smoke.SERVE_PLEN, smoke.SERVE_GEN
     params = tree_materialize(model_spec(cfg),
                               torch.Generator(device=dev).manual_seed(smoke.SEED), dev)

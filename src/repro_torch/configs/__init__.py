@@ -17,18 +17,19 @@ _MODULES = {
     "qwen3-14b": "qwen3_14b",
     "phi3-medium-14b": "phi3_medium_14b",
     "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "mamba2-780m": "mamba2_780m",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 # Known to the JAX package, not yet runnable here: what each waits for.
 _WAITING = {
     "pixtral-12b": "ROADMAP A7 (vision frontend)",
-    "qwen3-moe-30b-a3b": "ROADMAP A7 (MoE layers)",
-    "jamba-1.5-large-398b": "ROADMAP A7 (Mamba and MoE layers)",
-    "mamba2-780m": "ROADMAP A7 (Mamba layers)",
-    "qwen3-moe-235b-a22b": "ROADMAP A7 (MoE layers)",
     "hubert-xlarge": "ROADMAP A7 (audio frontend, encoder-only)",
     "gemma3-27b": "ROADMAP A7 (sliding windows, logit softcap)",
 }
+
 
 @dataclasses.dataclass(frozen=True)
 class InputShape:

@@ -3,11 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
         --batch 4 --prompt-len 2048 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m --reduced --device cpu
 
 The PyTorch counterpart of ``repro.launch.serve``: weights drawn from
 ``--seed`` by the port's own init, prompts from the Zipf token stream, then
-one prefill (every attention layer through the flash kernel on the card)
-and ``gen - 1`` greedy decode steps against the KV cache. It runs on the
+one prefill (every attention layer through the flash kernel on the card;
+MoE and SSD layers in PyTorch) and ``gen - 1`` greedy decode steps against
+the KV and SSD caches. Any registered config that decodes runs (qwen3,
+qwen3-moe, phi3, codeqwen, mamba2, jamba). It runs on the
 CUDA device unless ``--device cpu`` is given, and raises when there is no
 card and no device was named.
 """

@@ -1,4 +1,5 @@
-"""Model stack of the port: dense attention text models (qwen3, phi3, codeqwen)."""
+"""Model stack of the port: dense, MoE, SSM (Mamba2) and hybrid text models
+on one stage substrate (qwen3, qwen3-moe, phi3, codeqwen, mamba2, jamba)."""
 
 from repro_torch.models.config import LayerSpec, ModelConfig  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401

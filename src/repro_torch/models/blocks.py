@@ -1,19 +1,22 @@
-"""Transformer blocks and the multi-stage stack.
+"""Transformer/Mamba blocks and the multi-stage stack.
 
-PyTorch counterpart of ``repro.models.blocks`` for attention layers with a
-dense MLP. A *block* is one layer: pre-norm attention, plus a pre-norm
-SwiGLU MLP. A *stage* is a stack of identical periods whose parameters are
-stacked over a leading ``layers`` axis, as in the JAX package; where JAX
-scans, the port loops over the periods in Python and indexes the stacks.
-With ``remat`` (training) each period runs under ``torch.utils.checkpoint``
+PyTorch counterpart of ``repro.models.blocks``. A *block* is one layer: a
+pre-norm attention or SSD mixer, plus a pre-norm dense SwiGLU MLP, a MoE
+sublayer, or nothing (``mlp="none"``), per its :class:`LayerSpec`. A
+*stage* is a stack of identical periods whose parameters are stacked over a
+leading ``layers`` axis, as in the JAX package; where JAX scans, the port
+loops over the periods in Python and indexes the stacks. With ``remat``
+(training) each period runs under ``torch.utils.checkpoint``
 (non-reentrant), as JAX's ``jax.checkpoint`` of the scan body: its
-activations are recomputed in the backward pass instead of kept.
-Mamba mixers and MoE MLPs raise ``NotImplementedError`` (ROADMAP A7), as
-does the ring buffer of windowed layers.
+activations are recomputed in the backward pass instead of kept. Every
+MoE block returns its load-balance term, summed over the stage in layer
+order. The ring buffer of windowed layers raises
+``NotImplementedError`` (ROADMAP A7).
 
-KV caches: a full-attention layer keeps a (B, S_max, KV, hd) buffer; a
-stage's caches are stacked over its periods, (periods, B, S_max, KV, hd).
-Decode writes into them in place.
+Caches: a full-attention layer keeps a (B, S_max, KV, hd) KV buffer, an SSD
+layer an :class:`~repro_torch.models.ssm.SsmCache` (conv window, state); a
+stage's caches are stacked over its periods. Decode writes into them in
+place.
 """
 
 from __future__ import annotations
@@ -24,9 +27,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 from repro_torch.models.param import stack_specs, tree_leaves_with_path, tree_map
+from repro_torch.models.ssm import SsmCache
 
 
 class AttnCache(NamedTuple):
@@ -36,40 +42,52 @@ class AttnCache(NamedTuple):
     v: torch.Tensor
 
 
-def _check_layer(layer: LayerSpec) -> None:
-    if layer.kind != "attn":
-        raise NotImplementedError(f"{layer.kind} layers are not ported yet (ROADMAP A7)")
-    if layer.mlp == "moe":
-        raise NotImplementedError("MoE MLPs are not ported yet (ROADMAP A7)")
-
-
 def block_spec(cfg: ModelConfig, layer: LayerSpec) -> dict:
-    _check_layer(layer)
-    spec: dict[str, Any] = {"norm1": rmsnorm_spec(cfg.d_model, "embed"),
-                            "attn": attn_lib.attention_spec(cfg)}
+    spec: dict[str, Any] = {"norm1": rmsnorm_spec(cfg.d_model, "embed")}
+    if layer.kind == "attn":
+        spec["attn"] = attn_lib.attention_spec(cfg)
+    else:
+        spec["ssm"] = ssm_lib.ssm_spec(cfg)
     if layer.mlp == "dense":
         spec["norm2"] = rmsnorm_spec(cfg.d_model, "embed")
         spec["mlp"] = mlp_spec(cfg)
+    elif layer.mlp == "moe":
+        spec["norm2"] = rmsnorm_spec(cfg.d_model, "embed")
+        spec["moe"] = moe_lib.moe_spec(cfg)
     return spec
 
 
 def block_apply(params: dict, layer: LayerSpec, x: torch.Tensor, cfg: ModelConfig, *,
-                positions: torch.Tensor, cache: AttnCache | None = None,
+                positions: torch.Tensor, cache: Any = None,
                 cache_len: int | None = None, prefill: bool = False):
-    """Returns (x, new_cache). ``prefill=True`` returns the raw (k, v) of the
-    whole sequence for the caller to assemble."""
-    _check_layer(layer)
+    """Returns (x, new_cache, aux) with ``aux`` the float32 MoE load-balance
+    term, or None for a layer without MoE. ``prefill=True`` returns the raw
+    cache of the whole sequence (attention: its (k, v); SSD: its
+    :class:`SsmCache`) for the caller to assemble."""
+    aux = None
     h = rmsnorm(params["norm1"], x, cfg.rmsnorm_eps)
-    if cache is None:
-        out, new_cache = attn_lib.attention(params["attn"], h, cfg, positions=positions,
-                                            window=layer.window, return_kv=prefill)
+    if layer.kind == "attn":
+        if cache is None:
+            out, new_cache = attn_lib.attention(params["attn"], h, cfg, positions=positions,
+                                                window=layer.window, return_kv=prefill)
+        else:
+            out, new_cache = _attn_decode(params["attn"], h, cfg, layer, cache, cache_len,
+                                          positions)
+    elif cache is None:
+        if prefill:
+            out, new_cache = ssm_lib.ssm_forward(params["ssm"], h, cfg, return_cache=True)
+        else:
+            out, new_cache = ssm_lib.ssm_forward(params["ssm"], h, cfg), None
     else:
-        out, new_cache = _attn_decode(params["attn"], h, cfg, layer, cache, cache_len,
-                                      positions)
+        out, new_cache = ssm_lib.ssm_decode_step(params["ssm"], h, cache, cfg)
     x = x + out
     if layer.mlp == "dense":
         x = x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.rmsnorm_eps))
-    return x, new_cache
+    elif layer.mlp == "moe":
+        out2, aux = moe_lib.moe(params["moe"], rmsnorm(params["norm2"], x, cfg.rmsnorm_eps),
+                                cfg)
+        x = x + out2
+    return x, new_cache, aux
 
 
 def _attn_decode(params, h, cfg, layer: LayerSpec, cache: AttnCache, cache_len: int,
@@ -85,8 +103,9 @@ def _attn_decode(params, h, cfg, layer: LayerSpec, cache: AttnCache, cache_len: 
 
 
 def init_layer_cache(cfg: ModelConfig, layer: LayerSpec, batch: int, max_seq: int,
-                     dtype: torch.dtype, device: torch.device) -> AttnCache:
-    _check_layer(layer)
+                     dtype: torch.dtype, device: torch.device) -> AttnCache | SsmCache:
+    if layer.kind == "mamba":
+        return ssm_lib.ssm_init_cache(cfg, batch, dtype, device)
     attn_lib.check_supported(cfg, layer.window)
     shape = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
     return AttnCache(torch.zeros(shape, dtype=dtype, device=device),
@@ -100,48 +119,60 @@ def stage_spec(cfg: ModelConfig, layout: tuple[LayerSpec, ...], periods: int) ->
 
 def _period(tree: Any, p: int) -> Any:
     """Period ``p`` of a tree stacked over periods (views, not copies)."""
-    if isinstance(tree, AttnCache):
-        return AttnCache(tree.k[p], tree.v[p])
+    if isinstance(tree, (AttnCache, SsmCache)):
+        return type(tree)(*(t[p] for t in tree))
     return tree_map(lambda a: a[p], tree)
 
 
+def _stack(raws: list) -> Any:
+    """Per-period raw prefill caches -> one stacked over periods."""
+    stacked = [torch.stack(parts) for parts in zip(*raws)]
+    return SsmCache(*stacked) if isinstance(raws[0], SsmCache) else tuple(stacked)
+
+
 def _period_forward(p_params: dict, layout: tuple[LayerSpec, ...], x: torch.Tensor,
-                    cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
-    """One period of the stack without caches (training)."""
+                    aux: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """One period of the stack without caches (training): (x, aux)."""
     for i, layer in enumerate(layout):
-        x, _ = block_apply(p_params[f"pos{i}"], layer, x, cfg, positions=positions)
-    return x
+        x, _, a = block_apply(p_params[f"pos{i}"], layer, x, cfg, positions=positions)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def stage_apply(params: dict, layout: tuple[LayerSpec, ...], x: torch.Tensor,
                 cfg: ModelConfig, *, positions: torch.Tensor, caches: dict | None = None,
                 cache_len: int | None = None, prefill: bool = False, remat: bool = False):
-    """Run the stage's periods in order. Returns (x, new_caches).
+    """Run the stage's periods in order. Returns (x, new_caches, aux_sum).
 
-    Prefill returns each layer's raw (k, v) stacked over periods; decode
+    Prefill returns each layer's raw cache stacked over periods; decode
     returns ``caches`` itself, written in place; otherwise None. ``remat``
     (no caches, not prefill) recomputes each period in the backward pass.
+    ``aux_sum`` adds the MoE blocks' load-balance terms in layer order to a
+    float32 0 (the other blocks add 0 in the JAX package).
     """
     _, leaf = next(tree_leaves_with_path(params))
     periods = leaf.shape[0]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     raw: dict[str, list] = {f"pos{i}": [] for i in range(len(layout))}
     for p in range(periods):
         p_params = _period(params, p)
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_period_forward, p_params, layout, x, cfg, positions,
-                           use_reentrant=False)
+            x, aux = checkpoint(_period_forward, p_params, layout, x, aux, cfg, positions,
+                                use_reentrant=False)
             continue
         for i, layer in enumerate(layout):
             key = f"pos{i}"
             c = None if caches is None else _period(caches[key], p)
-            x, nc = block_apply(p_params[key], layer, x, cfg, positions=positions,
-                                cache=c, cache_len=cache_len, prefill=prefill)
+            x, nc, a = block_apply(p_params[key], layer, x, cfg, positions=positions,
+                                   cache=c, cache_len=cache_len, prefill=prefill)
+            if a is not None:
+                aux = aux + a
             if prefill:
                 raw[key].append(nc)
     if prefill:
-        return x, {key: (torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]))
-                   for key, kv in raw.items()}
-    return x, caches
+        return x, {key: _stack(parts) for key, parts in raw.items()}, aux
+    return x, caches, aux
 
 
 def init_stage_caches(cfg: ModelConfig, layout: tuple[LayerSpec, ...], periods: int,
@@ -150,6 +181,5 @@ def init_stage_caches(cfg: ModelConfig, layout: tuple[LayerSpec, ...], periods: 
     out = {}
     for i, layer in enumerate(layout):
         one = init_layer_cache(cfg, layer, batch, max_seq, dtype, device)
-        out[f"pos{i}"] = AttnCache(one.k.expand(periods, *one.k.shape).clone(),
-                                   one.v.expand(periods, *one.v.shape).clone())
+        out[f"pos{i}"] = type(one)(*(t.expand(periods, *t.shape).clone() for t in one))
     return out

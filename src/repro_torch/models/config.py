@@ -85,6 +85,14 @@ class ModelConfig:
         return self.head_dim if self.head_dim is not None else self.d_model // self.num_heads
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def pdtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
 
@@ -102,6 +110,9 @@ class ModelConfig:
         if rem:
             out.append((self.layout[:rem], 1))
         return out
+
+    def has_attention(self) -> bool:
+        return any(l.kind == "attn" for l in self.layout)
 
     def max_window(self) -> int | None:
         """None if any attention layer is full/global (unbounded context cost)."""

@@ -1,8 +1,9 @@
 """Top-level causal LM: parameter plan, training loss, prefill and decode.
 
-PyTorch counterpart of ``repro.models.model`` for text models built of
-attention layers with dense MLPs. Parameters are the JAX package's tree as
-nested dicts of tensors, path for path (``stage0.pos0.attn.wq``, ...), so
+PyTorch counterpart of ``repro.models.model`` for text models: attention
+and SSD (Mamba2) mixers with dense, MoE or no MLP sublayers. Parameters are
+the JAX package's tree as nested dicts of tensors, path for path
+(``stage0.pos0.attn.wq``, ...), so
 :func:`repro_torch.convert.params_from_arrays` carries JAX weights across
 unchanged. The vision and audio frontends wait for their slice (ROADMAP A7).
 """
@@ -16,7 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import blocks
 from repro_torch.models.blocks import AttnCache
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (chunked_cross_entropy, embed, embedding_spec,
                                        lm_head_spec, logits, rmsnorm, rmsnorm_spec)
 
@@ -44,26 +45,31 @@ def _input_embeds(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 def _forward_hidden(params, x, cfg, *, positions, caches=None, cache_len=None,
                     prefill=False, remat=False):
+    """(final-normed hidden states, caches per stage, summed float32 aux)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
     for si, (layout, _) in enumerate(cfg.stages()):
         c = None if caches is None else caches[si]
-        x, nc = blocks.stage_apply(params[f"stage{si}"], layout, x, cfg,
-                                   positions=positions, caches=c, cache_len=cache_len,
-                                   prefill=prefill, remat=remat)
+        x, nc, aux = blocks.stage_apply(params[f"stage{si}"], layout, x, cfg,
+                                        positions=positions, caches=c, cache_len=cache_len,
+                                        prefill=prefill, remat=remat)
         new_caches.append(nc)
-    return rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps), new_caches
+        aux_total = aux_total + aux
+    return rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps), new_caches, aux_total
 
 
-def train_loss(params: dict, batch: dict, cfg: ModelConfig, *,
-               remat: bool = True) -> torch.Tensor:
-    """Scalar float32 training loss: the mean next-token NLL of ``batch``
-    (``tokens``, ``labels`` (B, S)). The JAX package adds ``0.01 * aux``, the
-    MoE load-balancing term, which is 0 for the dense families ported here."""
+def train_loss(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = True,
+               aux_weight: float = 0.01) -> torch.Tensor:
+    """Scalar float32 training loss of ``batch`` (``tokens``, ``labels``
+    (B, S)): the mean next-token NLL plus ``aux_weight`` times the MoE
+    load-balance terms summed over the layers, as in the JAX package (the
+    sum is 0 without MoE layers)."""
     x = _input_embeds(params, batch, cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device, dtype=torch.int32)[None, :]
-    h, _ = _forward_hidden(params, x, cfg, positions=positions, remat=remat)
-    return chunked_cross_entropy(params["lm_head"], h, batch["labels"], cfg)
+    h, _, aux = _forward_hidden(params, x, cfg, positions=positions, remat=remat)
+    nll = chunked_cross_entropy(params["lm_head"], h, batch["labels"], cfg)
+    return nll + aux_weight * aux
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype,
@@ -73,9 +79,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype,
             for layout, periods in cfg.stages()]
 
 
-def _assemble_attn_cache(raw_kv, S: int, max_seq: int) -> AttnCache:
-    """Stacked raw (k, v) (periods, B, S, KV, hd) -> linear decode buffers."""
-    k, v = raw_kv
+def _assemble_cache(raw, layer: LayerSpec, S: int, max_seq: int):
+    """A layer's raw prefill cache, stacked over periods, -> its decode cache:
+    (k, v) (periods, B, S, KV, hd) -> linear buffers of ``max_seq`` slots; an
+    SSD layer's :class:`SsmCache` is already in decode form."""
+    if layer.kind != "attn":
+        return raw
+    k, v = raw
     pad = (0, 0, 0, 0, 0, max_seq - S)  # zeros after the prompt, on the S axis
     return AttnCache(F.pad(k, pad), F.pad(v, pad))
 
@@ -86,9 +96,10 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, *, max_seq: int):
     x = _input_embeds(params, batch, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device, dtype=torch.int32)[None, :]
-    h, raw_caches = _forward_hidden(params, x, cfg, positions=positions, prefill=True)
-    caches = [{key: _assemble_attn_cache(raw, S, max_seq) for key, raw in stage.items()}
-              for stage in raw_caches]
+    h, raw_caches, _ = _forward_hidden(params, x, cfg, positions=positions, prefill=True)
+    caches = [{f"pos{i}": _assemble_cache(stage[f"pos{i}"], layer, S, max_seq)
+               for i, layer in enumerate(layout)}
+              for (layout, _), stage in zip(cfg.stages(), raw_caches)]
     last = logits(params["lm_head"], h[:, -1:], cfg)[:, 0]
     return last, caches, S
 
@@ -102,6 +113,6 @@ def decode_step(params: dict, token: torch.Tensor, caches: list, cache_len: int,
     x = embed(params["embed"], token[:, None], cfg)
     positions = torch.full((x.shape[0], 1), cache_len - 1, device=x.device,
                            dtype=torch.int32)
-    h, new_caches = _forward_hidden(params, x, cfg, positions=positions, caches=caches,
-                                    cache_len=cache_len)
+    h, new_caches, _ = _forward_hidden(params, x, cfg, positions=positions, caches=caches,
+                                       cache_len=cache_len)
     return logits(params["lm_head"], h[:, -1:], cfg)[:, 0], new_caches

@@ -221,3 +221,165 @@ def test_decode_from_empty_caches_matches_a_one_token_prefill(narrow):
     lp, _, _ = tmodel.prefill(tp, {"tokens": _t(token[:, None]).long()}, tcfg, max_seq=max_seq)
     np.testing.assert_allclose(lt.numpy(), lp.numpy(), rtol=RTOL, atol=ATOL)
     assert float(tc[0]["pos0"].k[:, :, 1:].abs().max()) == 0.0  # only slot 0 written
+
+
+# ---------------------------------------------------------------------------
+# MoE, SSM and hybrid configs (qwen3-moe, mamba2, jamba).
+# ---------------------------------------------------------------------------
+
+# Parameter counts of the full configs, from the plans alone.
+NEW_ARCH_PARAMS = {"qwen3-moe-30b-a3b": 30_532_122_624, "qwen3-moe-235b-a22b": 235_093_634_560,
+                   "mamba2-780m": 857_379_072, "jamba-1.5-large-398b": 397_711_939_584}
+SERVED = ["qwen3-moe-30b-a3b", "mamba2-780m", "jamba-1.5-large-398b"]
+# The references compiled once per shape, not dispatched op by op.
+j_prefill = jax.jit(jmodel.prefill, static_argnames=("cfg", "max_seq", "mesh", "exploit_window"))
+j_decode = jax.jit(jmodel.decode_step, static_argnames=("cfg", "mesh"))
+
+
+@pytest.mark.parametrize("arch", sorted(NEW_ARCH_PARAMS))
+def test_moe_and_ssm_configs_equal_the_jax_configs(arch):
+    jcfg, tcfg = jget_config(arch), tget_config(arch)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(tcfg.reduced()) == dataclasses.asdict(jcfg.reduced())
+    assert [(len(l), n) for l, n in tcfg.stages()] == [(len(l), n) for l, n in jcfg.stages()]
+    assert (tcfg.d_inner, tcfg.ssm_heads, tcfg.has_attention()) == (
+        jcfg.d_inner, jcfg.ssm_heads, jcfg.has_attention())
+    assert tcfg.supports_long_decode() == jcfg.supports_long_decode()
+    n = tparam.num_params(tmodel.model_spec(tcfg))
+    assert n == NEW_ARCH_PARAMS[arch] == jparam.num_params(jmodel.model_spec(jcfg))
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "hubert-xlarge", "gemma3-27b"])
+def test_frontend_and_window_configs_still_wait_on_the_roadmap(arch):
+    with pytest.raises(KeyError, match="ROADMAP A7"):
+        tget_config(arch)
+
+
+def np_params(cfg, seed: int, fan_in: bool = False) -> dict:
+    """Weights for both packages drawn with numpy by the init rule (std
+    ``init_std``; with ``fan_in``, every stacked ``normal`` leaf at std
+    1/sqrt(its second-to-last dim) instead: a well-conditioned point).
+    Quicker than the JAX package's leaf-by-leaf draws; float32 configs only."""
+    rng = np.random.default_rng(seed)
+
+    def draw(s):
+        if s.init != "normal":
+            return np.full(s.shape, 0.0 if s.init == "zeros" else 1.0, np.float32)
+        std = tparam.init_std(s)
+        if fan_in and s.scale is None and len(s.shape) >= 3:  # the stacked leaves
+            std = 1.0 / math.sqrt(s.shape[-2])
+        return (rng.standard_normal(s.shape) * std).astype(np.float32)
+
+    return tparam.tree_map(draw, tmodel.model_spec(cfg))
+
+
+@pytest.fixture(scope="module", params=SERVED)
+def reduced(request):
+    jcfg, tcfg = jget_config(request.param).reduced(), tget_config(request.param).reduced()
+    jp = np_params(tcfg, 0)
+    tp = convert.params_from_arrays(jp, tcfg, device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def _assert_caches_close(tc, jc):
+    """Every cache leaf within rtol 1e-4 and 1e-4 of the leaf's largest entry:
+    at the init rule's weights (stacked leaves drawn with std 1/sqrt(layers))
+    an SSD state reaches ~1e4, and float32 rounding scales with it."""
+    for ts, js in zip(tc, jc):
+        assert set(ts) == set(js)
+        for key in ts:
+            assert type(ts[key]).__name__ == type(js[key]).__name__, key
+            for name in ts[key]._fields:
+                want = np.asarray(getattr(js[key], name))
+                np.testing.assert_allclose(getattr(ts[key], name).numpy(), want, rtol=RTOL,
+                                           atol=ATOL * max(1.0, float(np.abs(want).max())),
+                                           err_msg=f"{key}.{name}")
+
+
+def test_reduced_prefill_and_three_decode_steps_match_jax(reduced):
+    jcfg, tcfg, jp, tp = reduced
+    B, S, max_seq = 2, 21, 25
+    tokens = np.random.default_rng(7).integers(0, tcfg.vocab_size, (B, S)).astype(np.int32)
+    lj, cj, _ = j_prefill(jp, {"tokens": jnp.asarray(tokens)}, jcfg, max_seq=max_seq)
+    lt, ct, _ = tmodel.prefill(tp, {"tokens": _t(tokens).long()}, tcfg, max_seq=max_seq)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=RTOL, atol=ATOL)
+    _assert_caches_close(ct, cj)
+    tok_j, tok_t = jnp.argmax(lj, -1).astype(jnp.int32), torch.argmax(lt, -1)
+    for i in range(3):
+        np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+        lj, cj = j_decode(jp, tok_j, cj, jnp.int32(S + 1 + i), jcfg)
+        lt, ct = tmodel.decode_step(tp, tok_t, ct, S + 1 + i, tcfg)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=RTOL, atol=ATOL)
+        tok_j, tok_t = jnp.argmax(lj, -1).astype(jnp.int32), torch.argmax(lt, -1)
+    np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+    _assert_caches_close(ct, cj)
+    # init_caches gives the JAX package's cache tree (types, shapes, dtypes).
+    jc0 = jmodel.init_caches(jcfg, B, max_seq, jnp.float32)
+    tc0 = tmodel.init_caches(tcfg, B, max_seq, torch.float32, "cpu")
+    for ts, js in zip(tc0, jc0):
+        for key in js:
+            assert type(ts[key]).__name__ == type(js[key]).__name__
+            for a, b in zip(ts[key], js[key]):
+                assert tuple(a.shape) == b.shape and str(a.dtype).endswith(str(b.dtype))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-780m"])
+def test_params_from_arrays_carries_moe_and_ssm_trees_bit_for_bit(arch):
+    over = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), **over)
+    tcfg = dataclasses.replace(tget_config(arch).reduced(), **over)
+    jp = jparam.tree_materialize(jmodel.model_spec(jcfg), jax.random.key(2))
+    tp = convert.params_from_arrays(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    tleaves = dict(tparam.tree_leaves_with_path(tp))
+    jleaves = jax.tree_util.tree_flatten_with_path(jp)[0]
+    assert len(jleaves) == len(tleaves)
+    f32 = set()
+    for path, a in jleaves:
+        name = ".".join(k.key for k in path)
+        t, a = tleaves[name], np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            assert t.dtype == torch.bfloat16, name
+            np.testing.assert_array_equal(t.view(torch.int16).numpy(), a.view(np.int16))
+        else:
+            assert t.dtype == torch.float32, name
+            np.testing.assert_array_equal(t.numpy(), a)
+            f32.add(name.split(".")[-1] if "norm" not in name else name.split(".")[-2])
+    want = {"router"} if arch.startswith("qwen3") else {"dt_bias", "A_log", "D_skip",
+                                                         "conv_w", "conv_b", "norm"}
+    assert want <= f32, f32
+
+
+def test_jamba_train_loss_with_aux_and_a_moe_gradient_match_jax():
+    """At a fan-in init (see ``np_params``): the loss within rtol 1e-5, a MoE
+    layer's expert gradient within rtol 1e-4 (atol 1e-5 of its scale)."""
+    jcfg, tcfg = jget_config("jamba-1.5-large-398b").reduced(), tget_config(
+        "jamba-1.5-large-398b").reduced()
+    jp = np_params(tcfg, 3, fan_in=True)
+    tp = convert.params_from_arrays(jp, tcfg, device="cpu")
+    rng = np.random.default_rng(8)
+    tokens = rng.integers(0, tcfg.vocab_size, (2, 16)).astype(np.int32)
+    labels = rng.integers(0, tcfg.vocab_size, (2, 16)).astype(np.int32)
+    jb = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+    leaf = ("stage0", "pos1", "moe", "gate")  # a MoE layer's expert weights
+
+    def jloss(p):
+        return jmodel.train_loss(p, jb, jcfg, remat=True)
+
+    jv, jg = jax.jit(jax.value_and_grad(jloss))(jp)
+    tp = tparam.tree_map(lambda t: t.requires_grad_(True), tp)
+    tb = {"tokens": _t(tokens).long(), "labels": _t(labels).long()}
+    tv = tmodel.train_loss(tp, tb, tcfg, remat=True)
+    tv.backward()
+    np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-5)
+    got, want = tp, jg
+    for k in leaf:
+        got, want = got[k], want[k]
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.grad.numpy(), want, rtol=1e-4,
+                               atol=1e-5 * float(np.abs(want).max()))
+    # The aux term is in the loss, with the JAX package's weight.
+    with torch.no_grad():
+        nll = tmodel.train_loss(tp, tb, tcfg, aux_weight=0.0)
+        with_aux = tmodel.train_loss(tp, tb, tcfg)
+    assert float(with_aux - nll) > 0.0
+    np.testing.assert_allclose(float(with_aux), float(tv.detach()), rtol=1e-6)

@@ -69,6 +69,30 @@ def test_generate_gives_the_jax_tokens():
     assert res.prefill_flash_launches == res.decode_flash_launches == 0
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-780m", "jamba-1.5-large-398b"])
+def test_generate_gives_the_jax_tokens_for_moe_ssm_and_hybrid(arch):
+    jcfg, tcfg = jget_config(arch).reduced(), tget_config(arch).reduced()
+    jp = jparam.tree_materialize(jmodel.model_spec(jcfg), jax.random.key(4))
+    tp = convert.params_from_arrays(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    B, plen, gen = 2, 16, 4
+    prompts = tsynthetic.make_token_dataset(B * plen, tcfg.vocab_size, 1).reshape(B, plen)
+    j_prefill = jax.jit(jmodel.prefill, static_argnames=("cfg", "max_seq"))
+    j_decode = jax.jit(jmodel.decode_step, static_argnames=("cfg",))
+    logits, caches, plen = j_prefill(jp, {"tokens": jnp.asarray(prompts)}, jcfg,
+                                     max_seq=plen + gen)
+    plen = int(plen)
+    tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    want = [tok]
+    for i in range(gen - 1):
+        logits, caches = j_decode(jp, tok, caches, jnp.int32(plen + 1 + i), jcfg)
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        want.append(tok)
+    res = serve.generate(tp, prompts, tcfg, gen, device="cpu")
+    np.testing.assert_array_equal(res.tokens, np.stack([np.asarray(t) for t in want], 1))
+    assert res.logits_finite
+    assert res.prefill_flash_launches == res.decode_flash_launches == 0
+
+
 def test_cli_runs_reduced_on_the_cpu():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
@@ -77,6 +101,12 @@ def test_cli_runs_reduced_on_the_cpu():
         capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "generated token ids (batch 0):" in proc.stdout
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "qwen3-moe-30b-a3b"])
+def test_cli_runs_the_moe_and_ssm_archs_reduced_on_the_cpu(arch):
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+                "--prompt-len", "12", "--gen", "3"])
 
 
 def test_generate_without_a_device_or_a_card_raises(monkeypatch):
