@@ -56,7 +56,19 @@ capacity factor 16, where nothing drops; the SSM one, the chunked SSD
 against the recurrence, at JAX's SSD tolerances), and jamba's reduced
 hybrid stack (attention, SSD, dense and MoE layers in one period) on the
 card against the host; ``kernel_flash_attention_moe`` times the flash
-kernel at qwen3-moe's GQA shape (KV 4, G 8). It also checks that
+kernel at qwen3-moe's GQA shape (KV 4, G 8). Right after the MoE model,
+gemma3-27b (62 layers, 52 with a 1,024-key sliding window and a ring cache,
+56.84 GB of weights) and pixtral-12b (1,024 patch embeddings before the
+prompt) are served at full width and depth the same way, gemma3's prefill
+held against prefill plus a decode step over wrapped rings at full width
+in float32 over one 5 + 1 period; at the end hubert-xlarge (48 layers,
+head dim 80, not causal, frame embeddings) trains for a few steps at full
+width and depth through the train CLI's ACPD setup. The flash kernel's
+window and head dim 80 are held to the plain version in both dtypes (W
+1,024, 1,000 and 37, causal and not; hd 80; gemma3's global shape; the
+lse under both) and timed at gemma3's local and global, pixtral's and
+hubert's shapes against SDPA (with the window's boolean mask) and the
+bound. It also checks that
 the bfloat16 flash kernel was compiled to tensor-core (HGMMA) and TMA
 instructions, and that one top-k filter call runs at most four kernels
 without a host sync. Launch counts are zeroed just before each path and
@@ -123,6 +135,17 @@ CONSIST_LAYERS = 2
 # one ulp (both inits), more than a fixed 1e-4: the card must stay within
 # HYBRID_BAND times that shift, measured in the same run.
 MOE_ARCH, SSM_ARCH, HYBRID_ARCH = "qwen3-moe-30b-a3b", "mamba2-780m", "jamba-1.5-large-398b"
+# The window, vision and audio paths: gemma3-27b (62 layers, 52 of them with a
+# 1,024-key window and a ring cache; 56.84 GB of weights) and pixtral-12b
+# (1,024 patch embeddings before the 2,048-token prompt: S = 3,072) served at
+# full width and depth with the serve path's batch, prompt and tokens;
+# gemma3's consistency check at full width in float32 over one period (5
+# local + 1 global layers), its prompt past the window so that the decode
+# step writes over a wrapped ring; hubert-xlarge (48 layers, head dim 80,
+# not causal) trained at full width and depth through the train CLI's ACPD
+# setup, batch 8 x 1,024, AUDIO_STEPS steps.
+WINDOW_ARCH, VISION_ARCH, AUDIO_ARCH = "gemma3-27b", "pixtral-12b", "hubert-xlarge"
+WINDOW_CONSIST_LAYERS, AUDIO_STEPS = 6, 6
 MOE_CONSIST_CF = 16.0
 SSM_RTOL, SSM_ATOL = 1e-4, 2e-5
 HYBRID_B, HYBRID_PLEN, HYBRID_STEPS, HYBRID_TOL, HYBRID_BAND = 2, 256, 3, 1e-4, 3.0
@@ -230,10 +253,12 @@ def serve_path(phase: str, cfg, dev: torch.device) -> dict[str, int]:
     """Serve ``cfg`` at its width and depth through ``serve.generate``.
 
     Weights from ``SEED`` on the card, SERVE_B Zipf prompts of SERVE_PLEN
-    tokens, one 2-token warm-up (cuBLAS, the allocator; for a MoE model it
-    also records the first MoE layer's prefill routing), then SERVE_GEN
-    tokens with the launch counts zeroed just before and read just after.
-    Emits one line, checks it, frees the weights; returns the launches."""
+    tokens (a VLM's after min(num_patch_tokens, SERVE_PLEN // 2) standard
+    normal patch embeddings from ``SEED``, as the serve CLI draws them), one
+    2-token warm-up (cuBLAS, the allocator; for a MoE model it also records
+    the first MoE layer's prefill routing), then SERVE_GEN tokens with the
+    launch counts zeroed just before and read just after. Emits one line,
+    checks it, frees the weights; returns the launches."""
     import gc
 
     from repro_torch.data.synthetic import make_token_dataset
@@ -253,17 +278,22 @@ def serve_path(phase: str, cfg, dev: torch.device) -> dict[str, int]:
     init_s = time.perf_counter() - t0
     prompts = make_token_dataset(SERVE_B * SERVE_PLEN, cfg.vocab_size, 0).reshape(
         SERVE_B, SERVE_PLEN)
+    patches, n_patch = None, 0
+    if cfg.frontend == "vision_stub":
+        n_patch = min(cfg.num_patch_tokens, SERVE_PLEN // 2)
+        patches = np.random.default_rng(SEED).standard_normal(
+            (SERVE_B, n_patch, cfg.d_model)).astype(np.float32)
     routings, real_route = [], moe_lib.route
     if cfg.num_experts:
         moe_lib.route = lambda *a: routings.append(real_route(*a)) or routings[-1]
     try:
-        serve.generate(params, prompts, cfg, 2, device=dev)  # warm-up
+        serve.generate(params, prompts, cfg, 2, patch_embeds=patches, device=dev)  # warm-up
     finally:
         moe_lib.route = real_route
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    gen_res = serve.generate(params, prompts, cfg, SERVE_GEN, device=dev)
+    gen_res = serve.generate(params, prompts, cfg, SERVE_GEN, patch_embeds=patches, device=dev)
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     extra = {}
@@ -277,10 +307,20 @@ def serve_path(phase: str, cfg, dev: torch.device) -> dict[str, int]:
                      layer0_max_expert_load=int(load.max()),
                      layer0_experts_unused=int((load == 0).sum()),
                      layer0_aux=float(r.aux))
+    windows = [l.window for layout, n in cfg.stages() for l in layout * n]
+    if any(windows):  # ring caches of `window` slots for the windowed layers
+        W = max(w for w in windows if w)
+        kv_bytes = 2 * SERVE_B * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+        extra.update(window=W, windowed_layers=sum(w is not None for w in windows),
+                     ring_cache_gb=sum(w is not None for w in windows) * W * kv_bytes / 1e9,
+                     linear_cache_gb=sum(w is None for w in windows)
+                     * (SERVE_PLEN + n_patch + SERVE_GEN) * kv_bytes / 1e9)
+    if n_patch:
+        extra.update(patch_tokens=n_patch)
     want_flash = attention_layers(cfg)
     emit(phase, arch=cfg.arch_id, layers=cfg.num_layers, d_model=cfg.d_model,
          dtype=cfg.param_dtype, batch=SERVE_B, prompt_len=SERVE_PLEN, gen=SERVE_GEN,
-         max_seq=SERVE_PLEN + SERVE_GEN, mem_before_gb=mem_before, init_s=init_s,
+         max_seq=SERVE_PLEN + n_patch + SERVE_GEN, mem_before_gb=mem_before, init_s=init_s,
          prefill_s=gen_res.prefill_s,
          decode_ms_per_token=gen_res.decode_s / (SERVE_GEN - 1) * 1e3, wall_s=wall,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -296,7 +336,7 @@ def serve_path(phase: str, cfg, dev: torch.device) -> dict[str, int]:
           f"{phase}: the path launched the flash kernel once per attention layer")
     check(gen_res.logits_finite, f"{phase}: all logits finite")
     check(gen_res.tokens.shape == (SERVE_B, SERVE_GEN), f"{phase}: generated (B, gen) tokens")
-    del params, routings
+    del params, routings, gen_res
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -494,6 +534,23 @@ def main() -> int:
     # alone are 61.09 GB. Then the consistency checks and the hybrid stack.
     launches: dict[str, dict[str, int]] = {}
     launches["serve_moe"] = serve_path("serve_moe", get_config(MOE_ARCH), dev)
+    # -- main path 8: sliding windows and ring caches, the vision frontend --
+    # gemma3-27b's 56.84 GB of weights, next while the card is empty again.
+    t0 = time.perf_counter()
+    launches["serve_window"] = serve_path("serve_window", get_config(WINDOW_ARCH), dev)
+    emit("phase_seconds", path="serve_window", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    wcfg = dataclasses.replace(get_config(WINDOW_ARCH), num_layers=WINDOW_CONSIST_LAYERS,
+                               param_dtype="float32", compute_dtype="float32")
+    consistency_path("serve_consistency_window", wcfg, dev, 1e-3, 1e-3,
+                     window=wcfg.layout[0].window,
+                     period=[l.window for l in wcfg.layout],
+                     note="prompt past the window: prefill leaves the rings wrapped and the "
+                     "decode step overwrites each ring's oldest slot")
+    emit("phase_seconds", path="serve_consistency_window", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    launches["serve_vision"] = serve_path("serve_vision", get_config(VISION_ARCH), dev)
+    emit("phase_seconds", path="serve_vision", seconds=time.perf_counter() - t0)
     consistency_path(
         "serve_consistency_moe", dataclasses.replace(
             get_config(MOE_ARCH), num_layers=CONSIST_LAYERS, param_dtype="float32",
@@ -1794,48 +1851,80 @@ def main() -> int:
     # The tensor-core kernel at another head dim (its swizzle) and G = 1.
     cases += [(dict(B=2, S=1000, KV=8, G=1, hd=64), torch.bfloat16, c) for c in (True, False)]
     cases += [(moe_shape, dt, True) for dt in (torch.float32, torch.bfloat16)]
+    # The window and hd 80: gemma3-27b's local (W 1,024 at S 2,048)
+    # and global shapes (KV 16, G 2), W 1,000 at S 1,000, W 37 at a ragged
+    # S, hubert-xlarge's hd 80 (KV 16, G 1), causal and not, both dtypes.
+    gemma_shape = dict(B=SERVE_B, S=SERVE_PLEN, KV=16, G=2, hd=128)
+    hubert_shape = dict(B=TRAIN_B // 4, S=TRAIN_SEQ, KV=16, G=1, hd=80)
+    new_cases = [(dict(gemma_shape, B=2), 1024), (dict(gemma_shape, B=2, S=1000), 1000),
+                 (dict(gemma_shape, B=2, S=777), 37), (dict(hubert_shape, S=1000), None)]
+    cases = [(sh, dt, c) for sh, dt, c in cases] + [
+        (dict(sh, W=w) if w else sh, dt, c) for sh, w in new_cases
+        for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
+    cases += [(gemma_shape, dt, True) for dt in (torch.float32, torch.bfloat16)]
     cases += [(serve_shape, dt, True) for dt in (torch.float32, torch.bfloat16)]
+    # pixtral-12b's prefill (2,048 tokens after 1,024 patches: S = 3,072, G 4).
+    pixtral_shape = dict(B=SERVE_B, S=SERVE_PLEN + SERVE_PLEN // 2, KV=8, G=4, hd=128)
+    cases += [(pixtral_shape, dt, True) for dt in (torch.float32, torch.bfloat16)]
+    new_err = {"float32": 0.0, "bfloat16": 0.0}  # the window and hd 80 cases
     for shape, dtype, causal in cases:
         B_, S_, KV_, G_, hd_ = (shape[k] for k in ("B", "S", "KV", "G", "hd"))
+        W_ = shape.get("W")
         q = torch.randn(B_, S_, KV_, G_, hd_, generator=gen, device=dev).to(dtype)
         k_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(dtype)
         v_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(dtype)
-        out = ops.flash_attention_fwd(q, k_, v_, causal=causal)
-        want = ref.flash_attention_fwd_ref(q, k_, v_, causal=causal)
+        out = ops.flash_attention_fwd(q, k_, v_, causal=causal, window=W_)
+        want = ref.flash_attention_fwd_ref(q, k_, v_, causal=causal, window=W_)
         torch.cuda.synchronize()
         name = str(dtype).removeprefix("torch.")
         err = float((out.float() - want.float()).abs().max())
         rtol = 1e-5 if dtype == torch.float32 else 0.0
         within = bool(torch.allclose(out.float(), want.float(), rtol=rtol, atol=tol[name]))
-        bitwise = bool(torch.equal(out, ops.flash_attention_fwd(q, k_, v_, causal=causal)))
+        bitwise = bool(torch.equal(out, ops.flash_attention_fwd(q, k_, v_, causal=causal,
+                                                                window=W_)))
         flash_err[name] = max(flash_err[name], err)
         if shape == moe_shape:
             moe_err[name] = err
+        if W_ is not None or hd_ == 80 or shape in (gemma_shape, pixtral_shape):
+            new_err[name] = max(new_err[name], err)
         emit("kernel_flash_attention_check", shape=shape, dtype=name, causal=causal,
-             max_abs_err=err, rtol=rtol, atol=tol[name], within=within,
+             window=W_, max_abs_err=err, rtol=rtol, atol=tol[name], within=within,
              repeat_bitwise=bitwise)
         check(within, f"flash_attention_fwd within tolerance ({shape}, {name}, {causal})")
         check(bitwise, f"flash_attention_fwd repeats bit for bit ({shape}, {name})")
         if shape == moe_shape and dtype == torch.bfloat16:
             moe_qkv = (q, k_, v_)
+        del q, k_, v_, out, want
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def flash_times(q, k_, v_) -> dict:
-        """bfloat16, causal: the kernel, the plain version, and SDPA on the
-        (B, H, S, hd) layout (timed only, never used), beside the bound."""
-        out = ops.flash_attention_fwd(q, k_, v_, causal=True)
-        ms = time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, causal=True), warmup=2,
-                     reps=10)
-        plain_ms = time_ms(lambda: ref.flash_attention_fwd_ref(q, k_, v_, causal=True),
+    def flash_times(q, k_, v_, causal: bool = True, window: int | None = None) -> dict:
+        """bfloat16: the kernel, the plain version, and SDPA on the (B, H, S,
+        hd) layout (timed only, never used; with a window, one call with its
+        boolean mask), beside the bound: q.k and p.v over the (query, key)
+        pairs the mask lets through, counted from S, the causal flag and W."""
+        kw = dict(causal=causal, window=window)
+        out = ops.flash_attention_fwd(q, k_, v_, **kw)
+        ms = time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, **kw), warmup=2, reps=10)
+        plain_ms = time_ms(lambda: ref.flash_attention_fwd_ref(q, k_, v_, **kw),
                            warmup=1, reps=3)
         B_, S_, KV_, G_, hd_ = q.shape
         qs = q.reshape(B_, S_, KV_ * G_, hd_).transpose(1, 2).contiguous()
         ks, vs = k_.transpose(1, 2).contiguous(), v_.transpose(1, 2).contiguous()
-        library_ms = time_ms(lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True),
+        if window is None:
+            lib_kw = dict(is_causal=causal)
+        else:  # True where query i may attend to key j
+            i = torch.arange(S_, device=q.device)[:, None]
+            j = torch.arange(S_, device=q.device)[None, :]
+            lib_kw = dict(attn_mask=(i - j < window) & ((j <= i) if causal else True))
+        library_ms = time_ms(lambda: sdpa(qs, ks, vs, enable_gqa=True, **lib_kw),
                              warmup=2, reps=10)
-        sdpa_err = float((sdpa(qs, ks, vs, is_causal=True, enable_gqa=True).transpose(1, 2)
+        sdpa_err = float((sdpa(qs, ks, vs, enable_gqa=True, **lib_kw).transpose(1, 2)
                           .reshape(q.shape).float() - out.float()).abs().max())
-        flops = 4 * B_ * KV_ * G_ * hd_ * S_ * (S_ + 1) // 2  # q.k and p.v on the causal half
+        rows = np.arange(S_)
+        lo = np.zeros(S_, np.int64) if window is None else np.maximum(0, rows - window + 1)
+        hi = rows if causal else np.full(S_, S_ - 1)
+        pairs = int((hi - lo + 1).sum())  # (query, key) pairs that the mask keeps
+        flops = 4 * B_ * KV_ * G_ * hd_ * pairs  # q.k and p.v
         nbytes = 2 * q.numel() * q.element_size() + 2 * k_.numel() * k_.element_size()
         return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                     library_max_abs_diff=sdpa_err,
@@ -1844,7 +1933,11 @@ def main() -> int:
                     else "bytes", bound_flops=flops, bound_bytes=nbytes,
                     achieved_tflops=flops / (ms * 1e-3) / 1e12)
 
-    at_serve = flash_times(q, k_, v_)  # the last case: the serve shape, bf16
+    B_, S_, KV_, G_, hd_ = (serve_shape[k] for k in ("B", "S", "KV", "G", "hd"))
+    q = torch.randn(B_, S_, KV_, G_, hd_, generator=gen, device=dev).to(torch.bfloat16)
+    k_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(torch.bfloat16)
+    v_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(torch.bfloat16)
+    at_serve = flash_times(q, k_, v_)
     kernels["flash_attention_fwd"] = dict(
         name="flash_attention_fwd", route="cuda", source="src/repro_torch/csrc/flash_attn.cu",
         replaces="src/repro/kernels/flash_attn.py:86",
@@ -1858,7 +1951,28 @@ def main() -> int:
     emit("kernel_flash_attention_moe", shape=moe_shape, dtype="bfloat16", causal=True,
          max_abs_err_by_dtype=moe_err,
          library="scaled_dot_product_attention(is_causal=True, enable_gqa=True)", **at_moe)
-    del q, k_, v_, out, want, moe_qkv
+    del q, k_, v_, moe_qkv
+    torch.cuda.empty_cache()
+    # The new paths' shapes, bf16: gemma3's windowed and global layers,
+    # pixtral's prefill (S = 2,048 + 1,024 patches) and hubert's per-group
+    # training forward (hd 80, not causal).
+    at_new = {}
+    for label, shape, causal, window in (
+            ("gemma3_local", gemma_shape, True, 1024), ("gemma3_global", gemma_shape, True, None),
+            ("pixtral", pixtral_shape, True, None),
+            ("hubert_group", hubert_shape, False, None)):
+        B_, S_, KV_, G_, hd_ = (shape[k] for k in ("B", "S", "KV", "G", "hd"))
+        q = torch.randn(B_, S_, KV_, G_, hd_, generator=gen, device=dev).to(torch.bfloat16)
+        k_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(torch.bfloat16)
+        v_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(torch.bfloat16)
+        t0 = time.perf_counter()
+        at_new[label] = dict(shape=shape, causal=causal, window=window,
+                             **flash_times(q, k_, v_, causal, window))
+        emit("kernel_flash_attention_" + label, dtype="bfloat16",
+             library="scaled_dot_product_attention(enable_gqa=True"
+             + (", attn_mask=window)" if window else f", is_causal={causal})"),
+             seconds=time.perf_counter() - t0, **at_new[label])
+        del q, k_, v_
     torch.cuda.empty_cache()
 
     # -- kernel 3b: the flash kernel at the training path's shapes, with lse --
@@ -1873,8 +1987,15 @@ def main() -> int:
     out_err = {}  # by shape and dtype
     lse_ms = {}
     train_shape = dict(B=TRAIN_B // 4, S=TRAIN_SEQ, KV=32, G=1, hd=128)
-    for label, shape, with_lse in (("serve", serve_shape, True), ("train", train_shape, True),
-                                   ("train_monitored", dict(train_shape, B=TRAIN_B), False)):
+    for label, shape, with_lse, causal, window in (
+            ("serve", serve_shape, True, True, None), ("train", train_shape, True, True, None),
+            ("train_monitored", dict(train_shape, B=TRAIN_B), False, True, None),
+            # the lse under gemma3's window and at hubert's hd 80
+            ("gemma3_local", gemma_shape, True, True, 1024),
+            ("hubert_group", hubert_shape, True, False, None),
+            # hubert's monitored full-batch forward (B 8, no lse)
+            ("hubert_monitored", dict(hubert_shape, B=TRAIN_B), False, False, None)):
+        kw = dict(causal=causal, window=window)
         for dtype in (torch.float32, torch.bfloat16):
             B_, S_, KV_, G_, hd_ = (shape[k] for k in ("B", "S", "KV", "G", "hd"))
             q = torch.randn(B_, S_, KV_, G_, hd_, generator=gen, device=dev).to(dtype)
@@ -1882,16 +2003,15 @@ def main() -> int:
             v_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(dtype)
             name = str(dtype).removeprefix("torch.")
             rtol = 1e-5 if dtype == torch.float32 else 0.0
-            row = dict(at=label, shape=shape, dtype=name, causal=True, return_lse=with_lse)
+            row = dict(at=label, shape=shape, dtype=name, causal=causal, window=window,
+                       return_lse=with_lse)
             if with_lse:
-                out, lse = ops.flash_attention_fwd(q, k_, v_, causal=True, return_lse=True)
-                want_out, want = ref.flash_attention_fwd_ref(q, k_, v_, causal=True,
-                                                            return_lse=True)
-                same_out = bool(torch.equal(out, ops.flash_attention_fwd(q, k_, v_,
-                                                                         causal=True)))
+                out, lse = ops.flash_attention_fwd(q, k_, v_, return_lse=True, **kw)
+                want_out, want = ref.flash_attention_fwd_ref(q, k_, v_, return_lse=True, **kw)
+                same_out = bool(torch.equal(out, ops.flash_attention_fwd(q, k_, v_, **kw)))
             else:
-                out = ops.flash_attention_fwd(q, k_, v_, causal=True)
-                want_out = ref.flash_attention_fwd_ref(q, k_, v_, causal=True)
+                out = ops.flash_attention_fwd(q, k_, v_, **kw)
+                want_out = ref.flash_attention_fwd_ref(q, k_, v_, **kw)
             torch.cuda.synchronize()
             o_err = float((out.float() - want_out.float()).abs().max())
             o_within = bool(torch.allclose(out.float(), want_out.float(), rtol=rtol,
@@ -1901,23 +2021,23 @@ def main() -> int:
             row.update(out_max_abs_err=o_err, out_rtol=rtol, out_atol=tol[name],
                        out_within=o_within)
             check(o_within, f"flash output within tolerance ({label}, {name})")
-            without_ms = time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, causal=True),
+            without_ms = time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, **kw),
                                  warmup=2, reps=10)
             with_ms = None
             if with_lse:
                 err = float((lse - want).abs().max())
                 within = bool(torch.allclose(lse, want, rtol=1e-5, atol=lse_tol[name]))
                 lse_err[name] = max(lse_err[name], err)
-                with_ms = time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, causal=True,
-                                                                  return_lse=True),
+                with_ms = time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, return_lse=True,
+                                                                  **kw),
                                   warmup=2, reps=10)
                 row.update(lse_max_abs_err=err, rtol=1e-5, atol=lse_tol[name], within=within,
                            out_unchanged=same_out, ms_with_lse=with_ms)
                 check(within, f"flash lse within tolerance ({label}, {name})")
                 check(same_out, f"flash output unchanged by return_lse ({label}, {name})")
                 del lse, want
-            plain_ms = time_ms(lambda: ref.flash_attention_fwd_ref(q, k_, v_, causal=True,
-                                                                   return_lse=with_lse),
+            plain_ms = time_ms(lambda: ref.flash_attention_fwd_ref(q, k_, v_,
+                                                                   return_lse=with_lse, **kw),
                                warmup=1, reps=3)
             lse_ms[f"{label}_{name}"] = dict(with_lse=with_ms, without_lse=without_ms,
                                              plain=plain_ms)
@@ -1928,8 +2048,13 @@ def main() -> int:
     lse_ms["moe_bfloat16"] = dict(with_lse=None, without_lse=at_moe["ms"],
                                   plain=at_moe["plain_ms"], library=at_moe["library_ms"],
                                   bound=at_moe["bound_ms"])
+    for label, row in at_new.items():
+        lse_ms[f"{label}_bfloat16"] = dict(with_lse=lse_ms.get(f"{label}_bfloat16", {}).get(
+            "with_lse"), without_lse=row["ms"], plain=row["plain_ms"],
+            library=row["library_ms"], bound=row["bound_ms"], bound_by=row["bound_by"])
     kernels["flash_attention_fwd"].update(
         max_abs_err=max(flash_err.values()), out_max_abs_err_by_shape=out_err,
+        window_hd80_max_abs_err=new_err,
         lse_max_abs_err=lse_err, ms_with_lse=lse_ms["serve_bfloat16"]["with_lse"],
         ms_by_shape=lse_ms)
     torch.cuda.empty_cache()
@@ -2078,11 +2203,11 @@ def main() -> int:
         return float(torch.linalg.vector_norm((a.float() - b.float()).reshape(-1))
                      / torch.clamp(torch.linalg.vector_norm(b.float().reshape(-1)), min=1e-30))
 
-    def plain_grads(p, cfg_):
+    def plain_grads(p, cfg_, batch):
         kernel_fwd = ops.flash_attention_fwd
         ops.flash_attention_fwd = lambda q, k, v, **kw: ref.flash_attention_fwd_ref(q, k, v, **kw)
         try:
-            out = train_steps.value_and_grad(lambda p_, b: train_loss(p_, b, cfg_), p, cbatch)
+            out = train_steps.value_and_grad(lambda p_, b: train_loss(p_, b, cfg_), p, batch)
             torch.cuda.synchronize()
         finally:
             ops.flash_attention_fwd = kernel_fwd
@@ -2098,8 +2223,8 @@ def main() -> int:
                                                      params, cbatch)
         torch.cuda.synchronize()
         launched = ops.LAUNCHES["flash_attention_fwd"]
-        loss_p, grads_p = plain_grads(params, tcfg)
-        loss_32, grads_32 = plain_grads(tree_map(lambda t: t.float(), params), cfg32)
+        loss_p, grads_p = plain_grads(params, tcfg, cbatch)
+        loss_32, grads_32 = plain_grads(tree_map(lambda t: t.float(), params), cfg32, cbatch)
         g_k, g_p, g_32 = (tree_flatten(g)[0] for g in (grads_k, grads_p, grads_32))
         row = dict(
             loss_kernel=float(loss_k), loss_plain=float(loss_p), loss_float32=float(loss_32),
@@ -2212,6 +2337,111 @@ def main() -> int:
     del params, opt_state, exch_state, m
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- main path 8b: train hubert-xlarge at full width and depth ----------
+    # The train CLI's ACPD setup (python -m repro_torch.launch.train --arch
+    # hubert-xlarge --batch 8 --seq 1024): frame embeddings from the
+    # pipeline, every attention layer's forward on the flash kernel at hd 80,
+    # not causal, with its log-sum-exp in the groups' gradients.
+    t_phase = time.perf_counter()
+    args = train_cli.parser().parse_args(
+        ["--arch", AUDIO_ARCH, "--steps", str(AUDIO_STEPS), "--batch", str(TRAIN_B),
+         "--seq", str(TRAIN_SEQ), "--seed", str(SEED)])
+    setup_a = train_cli.setup_from_args(args)
+    acfg, aexch = setup_a.cfg, setup_a.exchange
+    step_a = train_steps.build_train_step(setup_a, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tree_materialize(model_spec(acfg), torch.Generator(device=dev).manual_seed(SEED),
+                              dev)
+    opt_state = opt_init(setup_a.optimizer, params)
+    exch_state = exch_lib.init_state(aexch, params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params_a = sum(math.prod(s.shape) for s in tree_flatten(model_spec(acfg))[0])
+    pipe = TokenPipeline(acfg, TRAIN_B, TRAIN_SEQ, seed=SEED, device=dev)
+    rows = []
+    ops.reset_launch_counts()
+    for step in range(AUDIO_STEPS):
+        batch = pipe.next_batch()
+        before = ops.LAUNCHES["flash_attention_fwd"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, exch_state, m = step_a(params, opt_state, exch_state, batch)
+        torch.cuda.synchronize()
+        row = {k.removeprefix("exchange/"): float(v) for k, v in m.items()}
+        row.update(step=step, ms=(time.perf_counter() - t0) * 1e3,
+                   flash_launches=ops.LAUNCHES["flash_attention_fwd"] - before)
+        rows.append(row)
+    launches["train_audio"] = dict(ops.LAUNCHES)
+    want_flash = (1 + 2 * aexch.num_groups) * acfg.num_layers
+    steady = sorted(r["ms"] for r in rows[2:])
+    losses = [r["loss"] for r in rows]
+    emit("train_audio", arch=acfg.arch_id, layers=acfg.num_layers, d_model=acfg.d_model,
+         heads=acfg.num_heads, head_dim=acfg.resolved_head_dim, causal=acfg.causal,
+         frontend=acfg.frontend, dtype=acfg.param_dtype, params=n_params_a, batch=TRAIN_B,
+         seq=TRAIN_SEQ, batch_keys=sorted(batch), exchange=dataclasses.asdict(aexch),
+         init_s=init_s, steps=rows, median_step_ms_2_5=steady[len(steady) // 2],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         flash_launches_per_step_rule=want_flash, launches=launches["train_audio"],
+         seconds=time.perf_counter() - t_phase)
+    check("tokens" not in batch and "frame_embeds" in batch, "the audio batch holds frames")
+    check(all(math.isfinite(x) for x in losses), "every hubert training loss is finite")
+    for r in rows:
+        check(r["flash_launches"] == want_flash,
+              f"hubert step {r['step']} launched the flash kernel {r['flash_launches']} "
+              f"times, want (1 + 2K) x layers = {want_flash}")
+    del params, opt_state, exch_state, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- train_audio_check: hubert's gradient on the kernel path against the
+    # plain forward, as train_check does for codeqwen: full width, 2 layers,
+    # batch 4 x 512 of frames, one value_and_grad at both inits; every leaf at
+    # the fan-in init, the leaves above every attention layer at the rule's.
+    t0 = time.perf_counter()
+    hcfg = dataclasses.replace(acfg, num_layers=TRAIN_LAYERS)
+    hbatch = TokenPipeline(hcfg, CHECK_B, CHECK_SEQ, seed=SEED + 1, device=dev).next_batch()
+    hpaths = sorted(path for path, _ in tree_leaves_with_path(model_spec(hcfg)))
+    audio_checks = {}
+    for init in ("rule", "fan_in"):
+        params = tree_materialize(model_spec(hcfg),
+                                  torch.Generator(device=dev).manual_seed(SEED), dev)
+        if init == "fan_in":
+            params = fan_in_params(params, hcfg)
+        ops.reset_launch_counts()
+        loss_k, grads_k = train_steps.value_and_grad(lambda p, b: train_loss(p, b, hcfg),
+                                                     params, hbatch)
+        torch.cuda.synchronize()
+        launched = ops.LAUNCHES["flash_attention_fwd"]
+        loss_p, grads_p = plain_grads(params, hcfg, hbatch)
+        audio_checks[init] = dict(
+            loss_kernel=float(loss_k), loss_plain=float(loss_p),
+            loss_rel_diff=abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+            kernel_flash_launches=launched,
+            kernel_vs_plain={p: rel_l2(a, b) for p, a, b in zip(
+                hpaths, tree_flatten(grads_k)[0], tree_flatten(grads_p)[0])})
+        del params, grads_k, grads_p
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("train_audio_check", arch=hcfg.arch_id, layers=TRAIN_LAYERS, batch=CHECK_B,
+         seq=CHECK_SEQ, dtype="bfloat16", loss_rtol=CHECK_LOSS_RTOL, grad_rtol=CHECK_GRAD_RTOL,
+         checked_at_rule_init=above_attention, seconds=time.perf_counter() - t0,
+         **audio_checks)
+    for init, row in audio_checks.items():
+        check(row["kernel_flash_launches"] == 2 * TRAIN_LAYERS,
+              f"hubert {init}: the forward and recompute launched the flash kernel once a "
+              "layer each")
+        check(row["loss_rel_diff"] <= CHECK_LOSS_RTOL,
+              f"hubert {init}: kernel loss within {CHECK_LOSS_RTOL} of the plain one")
+        leaves = hpaths if init == "fan_in" else above_attention
+        worst = max(row["kernel_vs_plain"][p] for p in leaves)
+        check(worst <= CHECK_GRAD_RTOL,
+              f"hubert {init}: kernel gradients within {CHECK_GRAD_RTOL} (relative L2) of "
+              f"the plain ones on {len(leaves)} leaves (worst {worst})")
+    del hbatch
 
     for name, entry in kernels.items():
         entry["launches"] = sum(path[name] for path in launches.values())

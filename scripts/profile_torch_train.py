@@ -1,8 +1,9 @@
 #!/usr/bin/env python
-"""Where the time goes in one ACPD-exchange train step of codeqwen1.5-7b on one card.
+"""Where the time goes in one ACPD-exchange train step on one card.
 
-Builds the training path of ``chip_smoke.py`` (codeqwen1.5-7b at full width,
-2 layers, bfloat16, random weights from the same seed; the CLI's ACPD
+Builds the training path of ``chip_smoke.py`` (by default codeqwen1.5-7b at
+full width, 2 layers; ``--arch hubert-xlarge --layers 0`` its audio path at
+full depth; bfloat16, random weights from the same seed; the CLI's ACPD
 exchange, K = 4, B = 2, T = 10, rho = 1/64; AdamW; batch 8 x 1,024), runs
 three steps to warm up, then times the step's parts one after the other,
 each between two ``torch.cuda.synchronize()``: the monitored forward of the
@@ -20,6 +21,7 @@ does not depend on its values.
 Run from the repo root on a machine with a card:
 
     python3 scripts/profile_torch_train.py [--reps 3] [--trace PATH]
+    python3 scripts/profile_torch_train.py --arch hubert-xlarge --layers 0
 """
 
 from __future__ import annotations
@@ -53,6 +55,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--trace", type=str, default=None)
+    parser.add_argument("--arch", default=None, help="default: chip_smoke.py's TRAIN_ARCH")
+    parser.add_argument("--layers", type=int, default=None,
+                        help="depth (default: chip_smoke.py's TRAIN_LAYERS; 0: the config's)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
@@ -71,10 +76,11 @@ def main() -> int:
 
     dev = torch.device("cuda")
     cli = train_cli.parser().parse_args(
-        ["--arch", smoke.TRAIN_ARCH, "--steps", str(smoke.TRAIN_STEPS), "--batch",
+        ["--arch", args.arch or smoke.TRAIN_ARCH, "--steps", str(smoke.TRAIN_STEPS), "--batch",
          str(smoke.TRAIN_B), "--seq", str(smoke.TRAIN_SEQ), "--seed", str(smoke.SEED)])
     setup = train_cli.setup_from_args(cli)
-    cfg = dataclasses.replace(setup.cfg, num_layers=smoke.TRAIN_LAYERS)
+    layers = smoke.TRAIN_LAYERS if args.layers is None else args.layers
+    cfg = dataclasses.replace(setup.cfg, num_layers=layers or setup.cfg.num_layers)
     setup = dataclasses.replace(setup, cfg=cfg)
     exch = setup.exchange
     step_fn = steps.build_train_step(setup, dev)

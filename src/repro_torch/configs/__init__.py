@@ -1,9 +1,9 @@
 """Architecture registry and assigned input shapes.
 
 ``get_config(arch_id)`` returns the exact assigned configuration, as
-``repro.configs.get_config`` does, for the architectures whose layers the
-port runs. The others raise ``KeyError`` naming the ROADMAP item they wait
-for. ``input_specs`` (abstract JAX inputs) has no counterpart yet.
+``repro.configs.get_config`` does, for every architecture of the JAX
+package. ``input_specs`` (abstract JAX inputs) has no counterpart yet
+(ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -21,14 +21,13 @@ _MODULES = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "mamba2-780m": "mamba2_780m",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "gemma3-27b": "gemma3_27b",
+    "pixtral-12b": "pixtral_12b",
+    "hubert-xlarge": "hubert_xlarge",
 }
 
 # Known to the JAX package, not yet runnable here: what each waits for.
-_WAITING = {
-    "pixtral-12b": "ROADMAP A7 (vision frontend)",
-    "hubert-xlarge": "ROADMAP A7 (audio frontend, encoder-only)",
-    "gemma3-27b": "ROADMAP A7 (sliding windows, logit softcap)",
-}
+_WAITING: dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)

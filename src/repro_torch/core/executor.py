@@ -433,16 +433,32 @@ def cache_key(key: tuple, tensors) -> tuple:
                        for t in tensors)
 
 
+def _live(full_key: tuple) -> Graphed | None:
+    """The cached run for ``full_key`` if every tensor it reads is alive, else
+    None. The caller holds ``_LOCK``."""
+    hit = _CACHE.get(full_key)
+    if hit is not None and all(r() is not None for r in hit[0]):
+        return hit[1]
+    return None
+
+
+def holds(full_key: tuple) -> bool:
+    """Whether the cache holds a live run for ``full_key`` (a
+    :func:`cache_key`): the next run of that key replays it, captures nothing."""
+    with _LOCK:
+        return _live(full_key) is not None
+
+
 def _compiled(key: tuple, tensors, make) -> Graphed:
     """The cached run for ``key`` (``tensors``: the device tensors a graph
     reads in place, such as ``X``; the entry dies with them), or a new one
     from ``make()``, counted as one trace."""
     full_key = cache_key(key, tensors)
     with _LOCK:
-        hit = _CACHE.get(full_key)
-        if hit is not None and all(r() is not None for r in hit[0]):
+        hit = _live(full_key)
+        if hit is not None:
             _CACHE.move_to_end(full_key)
-            return hit[1]
+            return hit
         entry = make()
         STATS[f"{entry.stat}_traces"] += 1
         _CACHE[full_key] = ([weakref.ref(t) for t in tensors], entry)

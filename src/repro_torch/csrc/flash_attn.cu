@@ -1,4 +1,5 @@
-// GQA flash-attention forward for Hopper, causal or not.
+// GQA flash-attention forward for Hopper, causal or not, with or without a
+// sliding window.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attn.py::
 // flash_attention_fwd_pallas (body _flash_fwd_kernel). For q (B, S, KV, G, hd)
@@ -6,9 +7,11 @@
 //
 //     out[b, s, h, g] = softmax_t(sm_scale * q[b, s, h, g] . k[b, t, h]) v[b, t, h]
 //
-// over t < S (and t <= s when causal), with the softmax in float32, written in
-// q's dtype. Masked scores are -1e30, not -inf, as on the TPU. One source, two
-// kernels, chosen by dtype:
+// over t < S (and t <= s when causal, and s - t < window when a window is
+// given), with the softmax in float32, written in q's dtype. The window is the
+// JAX package's windowed flash_attention (src/repro/models/flash.py, _mask),
+// one-sided also when not causal; its Pallas kernel has none. Masked scores are
+// -1e30, not -inf, as on the TPU. One source, two kernels, chosen by dtype:
 //
 // bfloat16: flash_fwd_bf16, both products on the tensor cores.
 //   One block per (128 query positions, b, query head). Warpgroups 0 and 1
@@ -19,9 +22,10 @@
 //   drops to 24 registers and the consumers ask for 240 (setmaxnreg). The
 //   Q tile is loaded once; K/V tiles of 128 rows go through a ring of 2
 //   stages behind mbarriers (full: the TMA's byte count; empty: all 256
-//   consumer threads). A row of the tile is one box of min(hd, 64) columns,
-//   swizzled by its width (128, 64 or 32 bytes); hd = 128 takes two boxes
-//   side by side. Each consumer warpgroup, per K/V tile:
+//   consumer threads). A row of the tile is cut into boxes of 64, 32 or 16
+//   columns (the widest of them that divides hd), each swizzled by its width
+//   (128, 64 or 32 bytes) and stored box after box: hd = 128 takes two boxes
+//   of 64, hd = 80 five of 16. Each consumer warpgroup, per K/V tile:
 //
 //     S = Q K^T        wgmma m64n128k16, Q and K K-major from shared memory
 //     online softmax   in float32 on S's accumulator registers (exp2 of
@@ -32,8 +36,17 @@
 //
 //   and ends with O / max(l, 1e-30), stored from registers with the rows
 //   at or past S skipped. TMA fills rows past S with zeros and the kp < S
-//   mask drops them. KV tiles above the diagonal are never loaded; only the
-//   diagonal tile and the ragged last tile are masked. Blocks with the most
+//   mask drops them. KV tiles above the diagonal, and those wholly below the
+//   window of the block's first query, are never loaded; only the diagonal
+//   tile, the tiles that cross the window's lower edge and the ragged last
+//   tile are masked, each consumer warpgroup judging its own 64 rows. The
+//   producer and both consumers walk the same tiles k_lo .. k_hi - 1 and
+//   count the ring's stages and mbarrier phases by the iteration, not by the
+//   tile index, so a window that starts past tile 0 keeps them in step. A
+//   row whose first tiles are wholly masked (the second warpgroup's, below
+//   its window) takes p = exp(0) = 1 on them; its first real key brings a
+//   correction of exp(-1e30 - m) = 0 that wipes l and O, as in the jnp
+//   online softmax, and every row meets its own key. Blocks with the most
 //   KV tiles (the last query tiles) are launched first, and the G query heads
 //   of a KV head are neighbours in the grid, so they read K/V from L2.
 //   Without split-KV or atomics the result repeats bit for bit.
@@ -56,12 +69,15 @@
 //   holding the 64 / G query positions of all G heads of one KV head, float32
 //   tiles in shared memory, 256 threads in 16 row groups of 4 rows by 16
 //   column lanes, the online softmax in registers, row reductions by warp
-//   shuffles, causal tiles skipped, ragged S by bounds checks.
+//   shuffles, causal tiles and tiles below the window skipped, ragged S by
+//   bounds checks.
 //
 // What bounds it: at the serve shape (B 4, S 2048, KV 8, G 5, hd 128, bf16,
 // causal) the work is 1.72e11 FLOP; at 989 TFLOP/s that takes 0.174 ms, and
 // its 201 MB of traffic 0.060 ms, so operations bound it: the bf16 kernel's
-// design is about keeping the tensor cores fed.
+// design is about keeping the tensor cores fed. A window of W keys cuts the
+// work to about 4 S W hd FLOP a head (gemma3-27b's local layers: W = 1,024 of
+// S = 2,048).
 //
 // Log-sum-exp: given a non-null lse pointer (float32, laid out (B, KV, G, S)),
 // each kernel also writes every query row's m + log(l), the log of the sum
@@ -119,7 +135,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
-              float* __restrict__ lse, int S, int KV, int G, int causal, float sm_scale) {
+              float* __restrict__ lse, int S, int KV, int G, int causal, int window,
+              float sm_scale) {
   using L = Tile<HD>;
   constexpr int BK = L::BK;
   constexpr int CPT = BK / 16;  // score columns per thread: tx + 16 j
@@ -168,8 +185,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int q_last = min(q0 + bq - 1, S - 1);
   int nk = (S + BK - 1) / BK;
   if (causal) nk = min(nk, q_last / BK + 1);  // skip tiles above the diagonal
+  // Skip tiles wholly below the window of the tile's first query.
+  const int t_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
 
-  for (int t = 0; t < nk; ++t) {
+  for (int t = t_lo; t < nk; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the last tile's readers are done (and Q is stored)
     for (int i = tid; i < BK * HD; i += kThreads) {
@@ -213,7 +232,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int kp = k0 + tx + 16 * j;
-        const bool ok = kp < S && (!causal || kp <= qpos[i]);
+        const bool ok = kp < S && (!causal || kp <= qpos[i]) &&
+                        (window <= 0 || qpos[i] - kp < window);
         if (!ok) s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -441,6 +461,24 @@ template <> struct WgmmaRS<64> {
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };
+template <> struct WgmmaRS<80> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
 template <> struct WgmmaRS<128> {
   static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t db, int scale_d) {
     asm volatile(
@@ -466,7 +504,10 @@ template <> struct WgmmaRS<128> {
 
 template <int HD>
 struct Bf16Tile {
-  static constexpr int kBoxCols = HD < 64 ? HD : 64;  // columns per TMA box
+  // Columns per TMA box: the widest swizzle span (64, 32 or 16 columns) that
+  // divides hd, so that the boxes cover the row exactly (hd = 80: 5 x 16).
+  static constexpr int kBoxCols = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
+  static_assert(HD % kBoxCols == 0 && HD % 16 == 0, "boxes must cover the head");
   static constexpr int kRowBytes = kBoxCols * 2;       // = the swizzle span
   static constexpr int kBoxes = HD / kBoxCols;
   static constexpr int kStepsPerBox = kRowBytes / 32;  // k16 steps along hd
@@ -485,8 +526,10 @@ struct Bf16Tile {
                        (kk % kStepsPerBox) * 32;
     return smem_desc<kRowBytes>(p, 16, 8 * kRowBytes);
   }
-  // MN-major operand (V): key rows 16 kk .. 16 kk + 15, all hd columns; the
-  // boxes of 64 columns are kBK rows apart.
+  // MN-major operand (V): key rows 16 kk .. 16 kk + 15, all hd columns. The
+  // leading offset is the step from one swizzle atom of columns (one box) to
+  // the next, kBK rows apart; the stride offset that from 8 key rows to the
+  // next.
   static __device__ __forceinline__ uint64_t mn_major(const uint8_t* tile, int kk) {
     return smem_desc<kRowBytes>(tile + kk * 16 * kRowBytes, kBK * kRowBytes, 8 * kRowBytes);
   }
@@ -497,7 +540,8 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
-               float* __restrict__ lse, int S, int H, int G, int causal, float scale_log2) {
+               float* __restrict__ lse, int S, int H, int G, int causal, int window,
+               float scale_log2) {
   using L = Bf16Tile<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -514,7 +558,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
   const int kvh = head / G;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest causal tiles first
   const int q_last = min(q0 + kBQ, S) - 1;
-  const int nk = causal ? q_last / kBK + 1 : (S + kBK - 1) / kBK;
+  // K/V tiles k_lo .. k_hi - 1: none above the diagonal, none wholly below
+  // the window of the block's first query (q0 - window + 1 is its first key).
+  const int k_hi = causal ? q_last / kBK + 1 : (S + kBK - 1) / kBK;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  const int n_tiles = k_hi - k_lo;
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -536,17 +584,19 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
       mbar_expect_tx(q_full, L::kQBytes);
       for (int c = 0; c < L::kBoxes; ++c)
         tma_load_4d(sQ + c * kBQ * L::kRowBytes, &q_map, q_full, c * L::kBoxCols, head, q0, b);
-      for (int t = 0; t < nk; ++t) {
-        const int s = t % kStages;
-        if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+      // Stage and phase by the iteration i, as the consumers count them.
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const int k0 = (k_lo + i) * kBK;
+        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
         mbar_expect_tx(&full[s], 2 * L::kKVBytes);
         uint8_t* kt = sK + s * L::kKVBytes;
         uint8_t* vt = sV + s * L::kKVBytes;
         for (int c = 0; c < L::kBoxes; ++c) {
-          tma_load_4d(kt + c * kBK * L::kRowBytes, &k_map, &full[s], c * L::kBoxCols, kvh,
-                      t * kBK, b);
-          tma_load_4d(vt + c * kBK * L::kRowBytes, &v_map, &full[s], c * L::kBoxCols, kvh,
-                      t * kBK, b);
+          tma_load_4d(kt + c * kBK * L::kRowBytes, &k_map, &full[s], c * L::kBoxCols, kvh, k0,
+                      b);
+          tma_load_4d(vt + c * kBK * L::kRowBytes, &v_map, &full[s], c * L::kBoxCols, kvh, k0,
+                      b);
         }
       }
     }
@@ -565,12 +615,23 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
   for (int j = 0; j < HD / 2; ++j) o[j] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // The keys each of this thread's two rows sees, kp_min .. kp_max: the
+  // mask as two compares a score, whatever of S, causal and the window is in
+  // play (tested per score, the window's term cost the windowless launches
+  // ~4 %, scripts/flash_ab.py).
+  int kp_min[2], kp_max[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = row0 + 8 * i;
+    kp_max[i] = causal ? min(qp, S - 1) : S - 1;
+    kp_min[i] = window > 0 ? qp - window + 1 : 0;
+  }
 
   mbar_wait(q_full, 0);
-  for (int t = 0; t < nk; ++t) {
-    const int s = t % kStages;
-    const int k0 = t * kBK;
-    mbar_wait(&full[s], (t / kStages) & 1);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    const int k0 = (k_lo + i) * kBK;
+    mbar_wait(&full[s], (i / kStages) & 1);
     const uint8_t* kt = sK + s * L::kKVBytes;
     const uint8_t* vt = sV + s * L::kKVBytes;
 
@@ -588,16 +649,18 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
     wgmma_wait_all();
     fence_regs<kBK / 2>(sc);
 
-    // Scale into the log2 domain; mask only the diagonal and ragged tiles.
-    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > q0 + wg * 64);
+    // Scale into the log2 domain; mask only the diagonal, ragged and window
+    // edge tiles of this warpgroup's rows r_lo .. r_lo + 63.
+    const int r_lo = q0 + wg * 64;
+    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > r_lo) ||
+                      (window > 0 && r_lo + 63 - k0 >= window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < kBK / 2; ++j) {
       float x = sc[j] * scale_log2;
       if (edge) {
         const int kp = k0 + 8 * (j / 4) + col0 + (j & 1);
-        const int qp = row0 + 8 * ((j >> 1) & 1);
-        if (kp >= S || (causal && kp > qp)) x = kNegInf;
+        if (kp > kp_max[(j >> 1) & 1] || kp < kp_min[(j >> 1) & 1]) x = kNegInf;
       }
       sc[j] = x;
       mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], x);
@@ -699,7 +762,8 @@ bool encode_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int hd,
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                int S, int KV, int G, int causal, float sm_scale, cudaStream_t stream) {
+                int S, int KV, int G, int causal, int window, float sm_scale,
+                cudaStream_t stream) {
   using L = Bf16Tile<HD>;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
@@ -716,18 +780,21 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, float* l
   if (err != cudaSuccess) return (int)err;
   if (attr.numRegs * kThreadsBf16 < 128 * 24 + kConsumers * 240)
     return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(flash_fwd_bf16<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)L::kSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * KV * G, (S + kBQ - 1) / kBQ);
   flash_fwd_bf16<HD><<<grid, kThreadsBf16, L::kSmem, stream>>>(
-      q_map, k_map, v_map, (__nv_bfloat16*)out, lse, S, KV * G, G, causal, sm_scale * kLog2e);
+      q_map, k_map, v_map, (__nv_bfloat16*)out, lse, S, KV * G, G, causal, window,
+      sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-               int S, int KV, int G, int causal, float sm_scale, cudaStream_t stream) {
+               int S, int KV, int G, int causal, int window, float sm_scale,
+               cudaStream_t stream) {
   const size_t smem = Tile<HD>::bytes;
   if (B * KV > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -737,16 +804,18 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, float* ls
   const dim3 grid((S + bq - 1) / bq, B * KV);
   flash_fwd_f32<HD><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, S, KV, G, causal,
-      sm_scale);
+      window, sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
-           int KV, int G, int dtype, int causal, float sm_scale, cudaStream_t stream) {
-  if (dtype == 0) return launch_f32<HD>(q, k, v, out, lse, B, S, KV, G, causal, sm_scale, stream);
+           int KV, int G, int dtype, int causal, int window, float sm_scale,
+           cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<HD>(q, k, v, out, lse, B, S, KV, G, causal, window, sm_scale, stream);
   if (dtype == 1)
-    return launch_bf16<HD>(q, k, v, out, lse, B, S, KV, G, causal, sm_scale, stream);
+    return launch_bf16<HD>(q, k, v, out, lse, B, S, KV, G, causal, window, sm_scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -754,19 +823,23 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 
 extern "C" {
 
-// dtype: 0 float32 (CUDA-core kernel), 1 bfloat16 (wgmma + TMA kernel). lse
-// may be null (no log-sum-exp written). The wrapper checks every argument first.
+// dtype: 0 float32 (CUDA-core kernel), 1 bfloat16 (wgmma + TMA kernel). window:
+// 0 for none, else query s sees key t only if s - t < window. lse may be null
+// (no log-sum-exp written). The wrapper checks every argument first.
 int flash_attn_launch(const void* q, const void* k, const void* v, void* out, void* lse,
-                      int B, int S, int KV, int G, int hd, int dtype, int causal,
+                      int B, int S, int KV, int G, int hd, int dtype, int causal, int window,
                       float sm_scale, void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || G < 1 || G > kRows) return (int)cudaErrorInvalidValue;
+  if (B < 1 || S < 1 || KV < 1 || G < 1 || G > kRows || window < 0)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   float* f = (float*)lse;
+  const int c = causal, w = window;
   switch (hd) {
-    case 16: return launch<16>(q, k, v, out, f, B, S, KV, G, dtype, causal, sm_scale, st);
-    case 32: return launch<32>(q, k, v, out, f, B, S, KV, G, dtype, causal, sm_scale, st);
-    case 64: return launch<64>(q, k, v, out, f, B, S, KV, G, dtype, causal, sm_scale, st);
-    case 128: return launch<128>(q, k, v, out, f, B, S, KV, G, dtype, causal, sm_scale, st);
+    case 16: return launch<16>(q, k, v, out, f, B, S, KV, G, dtype, c, w, sm_scale, st);
+    case 32: return launch<32>(q, k, v, out, f, B, S, KV, G, dtype, c, w, sm_scale, st);
+    case 64: return launch<64>(q, k, v, out, f, B, S, KV, G, dtype, c, w, sm_scale, st);
+    case 80: return launch<80>(q, k, v, out, f, B, S, KV, G, dtype, c, w, sm_scale, st);
+    case 128: return launch<128>(q, k, v, out, f, B, S, KV, G, dtype, c, w, sm_scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,8 +2,10 @@
 
 Replaces the TPU kernel ``repro.kernels.flash_attn.flash_attention_fwd_pallas``:
 GQA attention forward over q (B, S, KV, G, hd) and k, v (B, S, KV, hd),
-causal or not, with an online softmax in float32 and the KV tiles above the
-diagonal skipped. See the CUDA source for the design and what bounds it.
+causal or not, optionally over a sliding window (query i sees key j only
+if ``i - j < window``, the JAX package's ``FlashSpec`` mask), with an online
+softmax in float32 and the KV tiles above the diagonal or below the window
+skipped. See the CUDA source for the design and what bounds it.
 
 The launch dispatches on dtype to one of the source's two kernels, and both
 compute the same function: bfloat16 goes to the tensor-core kernel (both
@@ -32,7 +34,7 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "flash_attn"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 MAX_GROUP = 64  # query rows per tile in the kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -41,16 +43,18 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attn_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+        lib.flash_attn_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
         lib.flash_attn_launch.restype = i
         lib._typed = True
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> None:
     if q.dim() != 5:
         raise ValueError(f"flash_attn: q must be (B, S, KV, G, hd), got {tuple(q.shape)}")
     B, S, KV, G, hd = q.shape
+    if window is not None and not 1 <= window < 2**31:
+        raise ValueError(f"flash_attn: window must be a positive int32, got {window}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash_attn: {name} must lie on one CUDA device, "
@@ -75,14 +79,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              causal: bool = True, sm_scale: float | None = None,
-                             return_lse: bool = False):
+                             window: int | None = None, return_lse: bool = False):
     """Launch the kernel for q's dtype; returns (B, S, KV, G, hd) in that dtype,
     and with ``return_lse`` also the float32 log-sum-exp (B, KV, G, S).
 
     bfloat16 runs the tensor-core kernel, float32 the CUDA-core kernel. The
     launch is asynchronous on the current stream.
     """
-    _check(q, k, v)
+    _check(q, k, v, window)
     B, S, KV, G, hd = q.shape
     scale = hd**-0.5 if sm_scale is None else float(sm_scale)
     lib = _lib()
@@ -93,7 +97,7 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_attn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      out.data_ptr(), None if lse is None else lse.data_ptr(),
-                                     B, S, KV, G, hd, _DTYPES[q.dtype], int(causal), scale,
-                                     stream)
+                                     B, S, KV, G, hd, _DTYPES[q.dtype], int(causal),
+                                     window or 0, scale, stream)
     _build.check(lib, NAME, code, "flash_attn launch")
     return (out, lse) if return_lse else out

@@ -112,11 +112,13 @@ def sdca_epoch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: float | None = None,
-                        return_lse: bool = False):
+                        window: int | None = None, return_lse: bool = False):
     """GQA attention forward: q (B, S, KV, G, hd), k/v (B, S, KV, hd) -> q's shape.
 
     q is scaled by ``sm_scale`` (default ``hd ** -0.5``) inside, as on the
-    TPU; a caller holding pre-scaled q passes ``sm_scale=1.0``. With
+    TPU; a caller holding pre-scaled q passes ``sm_scale=1.0``. ``window``
+    limits query i to keys j with ``i - j < window`` (the JAX package's
+    windowed ``flash_attention``; its Pallas kernel has no window). With
     ``return_lse`` it returns ``(out, lse)``, lse the float32 log-sum-exp of
     each query row's scaled scores, (B, KV, G, S). On the card this is one
     launch of ``csrc/flash_attn.cu``; on the CPU it is
@@ -124,8 +126,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: float | None 
     """
     if q.is_cuda:
         out = flash_attention_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
-                                       return_lse=return_lse)
+                                       window=window, return_lse=return_lse)
         _count("flash_attention_fwd")
         return out
     return ref.flash_attention_fwd_ref(q, k, v, causal=causal, sm_scale=sm_scale,
-                                       return_lse=return_lse)
+                                       window=window, return_lse=return_lse)

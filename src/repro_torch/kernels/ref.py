@@ -49,14 +49,17 @@ def sdca_inner_ref(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
 
 def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             causal: bool, sm_scale: float | None = None,
-                            return_lse: bool = False):
+                            window: int | None = None, return_lse: bool = False):
     """GQA attention forward, computed in float32, cast to ``q.dtype``.
 
     ``q (B, S, KV, G, hd)``, ``k``/``v (B, S, KV, hd)``; ``q`` is scaled by
     ``sm_scale`` (default ``hd ** -0.5``) here, so pass it unscaled, or
-    pre-scaled with ``sm_scale=1.0``. Masked scores are ``NEG_INF``. With
-    ``return_lse`` also the float32 ``torch.logsumexp`` of each row's masked,
-    scaled scores, (B, KV, G, S).
+    pre-scaled with ``sm_scale=1.0``. Query position ``i`` attends to key
+    ``j`` if ``j < S``, ``j <= i`` when ``causal``, and ``i - j < window``
+    when a window is set: the mask of the JAX package's ``FlashSpec``
+    (``repro.models.flash._mask``), one-sided also when not causal. Masked
+    scores are ``NEG_INF``. With ``return_lse`` also the float32
+    ``torch.logsumexp`` of each row's masked, scaled scores, (B, KV, G, S).
     """
     B, S, KV, G, hd = q.shape
     scale = hd**-0.5 if sm_scale is None else sm_scale
@@ -67,6 +70,8 @@ def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
     mask = kpos < S
     if causal:
         mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (qpos - kpos < window)
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float()).to(q.dtype)

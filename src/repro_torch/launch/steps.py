@@ -23,7 +23,8 @@ The mesh is not ported (ROADMAP A7): sequence sharding, ZeRO-1 and FSDP
 have nothing to shard over on one card, and asking for them raises. The JAX
 package's ``profile``, ``exploit_window`` and ``sequential_exchange``
 options have no counterpart: the rule tables need the mesh, windowed layers
-raise, and the step always takes the sequential exchange (K stacked
+always take their window (``attend_blocked`` is not ported), and the step
+always takes the sequential exchange (K stacked
 gradients would not fit beside the residuals at full width).
 """
 
@@ -88,9 +89,10 @@ def build_train_step(setup: TrainSetup, device: str | torch.device | None = None
         return {k: v.reshape(G, v.shape[0] // G, *v.shape[1:]) for k, v in batch.items()}
 
     def step(params, opt_state, exch_state, batch):
-        if batch["tokens"].device != dev:
-            raise ValueError(f"the batch lies on {batch['tokens'].device}, the step "
-                             f"runs on {dev}")
+        for name, leaf in batch.items():
+            if leaf.device != dev:
+                raise ValueError(f"the batch's {name} lies on {leaf.device}, the step "
+                                 f"runs on {dev}")
         metrics = {}
         if exch is None:
             loss, update = value_and_grad(loss_fn, params, batch)

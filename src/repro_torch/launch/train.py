@@ -6,6 +6,8 @@ lines, on one card (or the CPU with ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch codeqwen1.5-7b --reduced \\
       --steps 50 --batch 8 --seq 128 --exchange acpd
 
+Every registered config trains, the VLM and audio ones on the pipeline's
+patch and frame embeddings (``--arch pixtral-12b``, ``--arch hubert-xlarge``).
 Checkpoints (params + opt + exchange residuals + data cursor) every
 --ckpt-every steps; resumes with --resume. Without ``--device`` it runs on
 the card and raises when there is none. ``--production-mesh`` raises: the

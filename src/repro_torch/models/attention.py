@@ -1,14 +1,17 @@
 """GQA attention: flash-kernel prefill and training, and decode over a KV cache.
 
-PyTorch counterpart of ``repro.models.attention`` for layers with full
-attention and no logit softcap. Without a cache (prefill and training) every
-layer goes through ``models.flash.flash_attention``, whose forward is
-``kernels.ops.flash_attention_fwd`` (on the card, the hand-written kernel
-``csrc/flash_attn.cu``) and whose backward is FlashAttention-2's
-recomputation; decode attends one query over the cache in plain PyTorch, as
-the JAX package does. A layer with a sliding window, or a
-config with a softcap, raises ``NotImplementedError`` on every device: those
-wait for ``attend_blocked`` and the windowed flash path (ROADMAP A7).
+PyTorch counterpart of ``repro.models.attention`` for layers with full or
+sliding-window attention and no logit softcap. Without a cache (prefill and
+training) every layer goes through ``models.flash.flash_attention``, whose
+forward is ``kernels.ops.flash_attention_fwd`` (on the card, the
+hand-written kernel ``csrc/flash_attn.cu``, with the layer's window) and
+whose backward is FlashAttention-2's recomputation; decode attends one
+query over the cache in plain PyTorch, as the JAX package does, over a
+linear buffer (with the window's mask) or a ring of the window's last keys.
+A config with a softcap raises ``NotImplementedError`` on every device
+(ROADMAP A7). The JAX package's ``exploit_window=False`` baseline
+(``attend_blocked`` over every key) is not ported (ROADMAP A7): a windowed
+layer always takes its window.
 
 Scaling: ``_project_qkv`` pre-scales q by ``hd ** -0.5`` in the compute
 dtype, as the JAX package does, and ``attention`` hands that q to the kernel
@@ -42,12 +45,8 @@ def attention_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
-def check_supported(cfg: ModelConfig, window: int | None) -> None:
-    """Raise for what this slice does not run: windows and softcaps."""
-    if window is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: sliding-window attention (window={window}) is not "
-            "ported yet (ROADMAP A7)")
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the port does not run: the logit softcap."""
     if cfg.attn_logit_softcap is not None:
         raise NotImplementedError(
             f"{cfg.arch_id}: attention logit softcap is not ported yet (ROADMAP A7)")
@@ -76,14 +75,18 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def attend_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 cfg: ModelConfig, *, cache_len: int) -> torch.Tensor:
-    """Single-token decode attention over the first ``cache_len`` cache slots.
+                 cfg: ModelConfig, *, cache_len: int, window: int | None = None) -> torch.Tensor:
+    """Single-token decode attention over the first ``cache_len`` cache slots,
+    and with a window only over the last ``window`` of them.
 
     q (B, 1, KV, G, hd) pre-scaled; caches (B, S_max, KV, hd). Returns
     (B, 1, KV, G, hd).
     """
     S_max = k_cache.shape[1]
-    mask = torch.arange(S_max, device=q.device) < cache_len
+    kpos = torch.arange(S_max, device=q.device)
+    mask = kpos < cache_len
+    if window is not None:
+        mask = mask & (kpos >= cache_len - window)
     scores = torch.einsum("bqkgh,bskh->bkgqs", q, k_cache).float()
     scores = scores.masked_fill(~mask, NEG_INF)
     p = torch.softmax(scores, dim=-1)
@@ -94,18 +97,23 @@ def attend_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, window: int | None,
               cache: tuple[torch.Tensor, torch.Tensor] | None = None,
-              cache_len: int | None = None, return_kv: bool = False):
-    """Full attention layer. Returns (out (B,S,D), cache or None).
+              cache_len: int | None = None, slot: int | None = None,
+              return_kv: bool = False):
+    """Attention layer, over a window of the last ``window`` keys if it is
+    set. Returns (out (B,S,D), cache or None).
 
     Prefill and training (``cache=None``) go through the flash kernel (the
     backward's blocks are 512 by 512, the JAX package's defaults);
     ``return_kv=True`` also returns the projected (k, v) for the caller to
     assemble caches.
     Decode (``cache=(k_cache, v_cache)``, S == 1) writes the new token's k, v
-    into slot ``cache_len - 1`` of the buffers in place, where the JAX
-    package makes updated copies, and returns the same buffers.
+    into ``slot`` (default ``cache_len - 1``) of the buffers in place, where
+    the JAX package makes updated copies, attends over the first
+    ``cache_len`` slots (and the window) and returns the same buffers; a
+    ring buffer passes its slot, its filled length and no window
+    (``blocks._attn_decode``).
     """
-    check_supported(cfg, window)
+    check_supported(cfg)
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     if positions.dim() == 1:
@@ -123,9 +131,10 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         if S != 1 or cache_len is None:
             raise ValueError("decode takes one token and its cache_len")
         k_cache, v_cache = cache
-        k_cache[:, cache_len - 1] = k[:, 0]
-        v_cache[:, cache_len - 1] = v[:, 0]
-        out = attend_cache(q, k_cache, v_cache, cfg, cache_len=cache_len)
+        slot = cache_len - 1 if slot is None else slot
+        k_cache[:, slot] = k[:, 0]
+        v_cache[:, slot] = v[:, 0]
+        out = attend_cache(q, k_cache, v_cache, cfg, cache_len=cache_len, window=window)
         new_cache = (k_cache, v_cache)
 
     out = out.reshape(B, S, H * hd) @ params["wo"].to(x.dtype)

@@ -10,13 +10,14 @@ loops over the periods in Python and indexes the stacks. With ``remat``
 (non-reentrant), as JAX's ``jax.checkpoint`` of the scan body: its
 activations are recomputed in the backward pass instead of kept. Every
 MoE block returns its load-balance term, summed over the stage in layer
-order. The ring buffer of windowed layers raises
-``NotImplementedError`` (ROADMAP A7).
+order.
 
-Caches: a full-attention layer keeps a (B, S_max, KV, hd) KV buffer, an SSD
-layer an :class:`~repro_torch.models.ssm.SsmCache` (conv window, state); a
-stage's caches are stacked over its periods. Decode writes into them in
-place.
+Caches: a full-attention layer keeps a (B, S_max, KV, hd) KV buffer; a
+sliding-window layer whose window is shorter than S_max a ring of exactly
+``window`` slots (position p in slot p % window), as in the JAX package;
+an SSD layer an :class:`~repro_torch.models.ssm.SsmCache` (conv window,
+state). A stage's caches are stacked over its periods. Decode writes into
+them in place.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from repro_torch.models.ssm import SsmCache
 
 
 class AttnCache(NamedTuple):
-    """Linear KV buffer of one layer (or stacked over a stage's periods)."""
+    """KV buffer of one layer (or stacked over a stage's periods). It is a
+    ring iff the layer has a window and S_buf == window (``_attn_decode``)."""
 
     k: torch.Tensor  # (B, S_buf, KV, hd)
     v: torch.Tensor
@@ -92,13 +94,18 @@ def block_apply(params: dict, layer: LayerSpec, x: torch.Tensor, cfg: ModelConfi
 
 def _attn_decode(params, h, cfg, layer: LayerSpec, cache: AttnCache, cache_len: int,
                  positions):
-    """One-token decode against a linear KV buffer, updated in place."""
-    if layer.window is not None and cache.k.shape[1] == layer.window:
-        raise NotImplementedError("ring KV buffers of windowed layers are not "
-                                  "ported yet (ROADMAP A7)")
+    """One-token decode against a linear or a ring KV buffer, updated in
+    place. The ring writes slot ``(cache_len - 1) % window`` and attends over
+    its ``min(cache_len, window)`` filled slots with no mask: the ring is
+    the window."""
+    S_buf = cache.k.shape[1]
+    if layer.window is not None and S_buf == layer.window:
+        slot, valid, window = (cache_len - 1) % S_buf, min(cache_len, S_buf), None
+    else:
+        slot, valid, window = cache_len - 1, cache_len, layer.window
     out, (k_buf, v_buf) = attn_lib.attention(
-        params, h, cfg, positions=positions, window=layer.window,
-        cache=(cache.k, cache.v), cache_len=cache_len)
+        params, h, cfg, positions=positions, window=window, cache=(cache.k, cache.v),
+        cache_len=valid, slot=slot)
     return out, AttnCache(k_buf, v_buf)
 
 
@@ -106,8 +113,10 @@ def init_layer_cache(cfg: ModelConfig, layer: LayerSpec, batch: int, max_seq: in
                      dtype: torch.dtype, device: torch.device) -> AttnCache | SsmCache:
     if layer.kind == "mamba":
         return ssm_lib.ssm_init_cache(cfg, batch, dtype, device)
-    attn_lib.check_supported(cfg, layer.window)
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+    attn_lib.check_supported(cfg)
+    # A ring of `window` slots where the window is shorter than the context.
+    s_buf = layer.window if layer.window is not None and layer.window < max_seq else max_seq
+    shape = (batch, s_buf, cfg.num_kv_heads, cfg.resolved_head_dim)
     return AttnCache(torch.zeros(shape, dtype=dtype, device=device),
                      torch.zeros(shape, dtype=dtype, device=device))
 
@@ -170,8 +179,8 @@ def stage_apply(params: dict, layout: tuple[LayerSpec, ...], x: torch.Tensor,
                 aux = aux + a
             if prefill:
                 raw[key].append(nc)
-    if prefill:
-        return x, {key: _stack(parts) for key, parts in raw.items()}, aux
+    if prefill:  # each layer's list freed once stacked
+        return x, {key: _stack(raw.pop(key)) for key in list(raw)}, aux
     return x, caches, aux
 
 

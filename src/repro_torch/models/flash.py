@@ -19,9 +19,21 @@ bfloat16 there, which at scores of magnitude 10 already moves p by ~3 %.
 When no gradient is wanted (prefill, the train step's monitored loss), the
 forward is the kernel without the log-sum-exp, as serving always ran it.
 
+Windows: the forward is the kernel with its window (query i sees key j only
+if ``i - j < window``). The backward masks by the window and skips the
+kv-blocks wholly below each q-block's window, so windowed layers cost
+O(S * W). Its blocks are aligned to the sequence, not to the window as in
+``_bwd_impl``'s (window + bq) key slice; the masked sums are the same. A
+window that is not causal is one-sided, as the mask says
+(``repro.models.flash._mask``): every key after the query passes it. JAX's
+windowed slice ends at the q-block's last row and so drops those keys,
+making its result depend on ``block_q`` (ROADMAP C8); the port takes every
+key after the window's lower edge, with the mask, like JAX's
+``attend_blocked(..., exploit_window=False)``.
+
 GQA layout throughout: q (B, S, KV, G, hd) pre-scaled; k, v (B, S, KV, hd).
-Sliding windows and the logit softcap raise ``NotImplementedError`` (ROADMAP
-A7), as ``models.attention.check_supported`` does.
+A logit softcap raises ``NotImplementedError`` (ROADMAP A7), as
+``models.attention.check_supported`` does.
 """
 
 from __future__ import annotations
@@ -44,9 +56,6 @@ class FlashSpec(NamedTuple):
 
 
 def _check(spec: FlashSpec) -> None:
-    if spec.window is not None:
-        raise NotImplementedError(f"windowed flash attention (window={spec.window}) is "
-                                  "not ported yet (ROADMAP A7)")
     if spec.softcap is not None:
         raise NotImplementedError("flash attention with a logit softcap is not ported "
                                   "yet (ROADMAP A7)")
@@ -65,13 +74,16 @@ def flash_backward(q, k, v, out, lse, dout, spec: FlashSpec):
     """(dq, dk, dv) of the attention at (q, k, v) for the cotangent ``dout``.
 
     ``out`` and ``lse`` (B, KV, G, S) are the forward's; the port of the JAX
-    package's ``_bwd_impl`` without windows and softcap.
+    package's ``_bwd_impl`` without the softcap. Blocks wholly above the
+    diagonal or wholly below a q-block's window are skipped: their
+    probabilities are exactly 0, so the sums are unchanged.
     """
     _check(spec)
     B, S, KV, G, hd = q.shape
     bq, bk = min(spec.block_q, S), min(spec.block_k, S)
     nq, nk = -(-S // bq), -(-S // bk)
     Sq, Lk = nq * bq, nk * bk
+    window = spec.window
     qp = _pad_seq(q, Sq)
     doutp = _pad_seq(dout, Sq).float()
     outp = _pad_seq(out, Sq).float()
@@ -91,7 +103,8 @@ def flash_backward(q, k, v, out, lse, dout, spec: FlashSpec):
         qpos = torch.arange(qi * bq, (qi + 1) * bq, device=q.device)
         dq_acc = torch.zeros((B, KV, G, bq, hd), dtype=torch.float32, device=q.device)
         last = nk if not spec.causal else min(nk, ((qi + 1) * bq - 1) // bk + 1)
-        for j in range(last):
+        first = 0 if window is None else max(0, qi * bq - window + 1) // bk
+        for j in range(first, last):
             cols = slice(j * bk, (j + 1) * bk)
             kb = k_src[:, cols].permute(0, 2, 1, 3)  # (B, KV, bk, hd)
             vbf = v_src[:, cols].permute(0, 2, 1, 3).float()
@@ -99,6 +112,8 @@ def flash_backward(q, k, v, out, lse, dout, spec: FlashSpec):
             msk = kpos[None, :] < S
             if spec.causal:
                 msk = msk & (kpos[None, :] <= qpos[:, None])
+            if window is not None:
+                msk = msk & (qpos[:, None] - kpos[None, :] < window)
             s = torch.einsum("bkgqh,bkch->bkgqc", qbf, kb.float())
             s = torch.where(msk, s, NEG_INF)
             p = torch.exp(s - lseb[..., None])  # (B, KV, G, bq, bk)
@@ -108,14 +123,14 @@ def flash_backward(q, k, v, out, lse, dout, spec: FlashSpec):
             dk[:, cols] += torch.einsum("bkgqc,bkgqh->bkch", ds, qbf).transpose(1, 2)
             dv[:, cols] += torch.einsum("bkgqc,bkgqh->bkch", p, dob).transpose(1, 2)
         dq[:, rows] = dq_acc.permute(0, 3, 1, 2, 4)
-    return (dq[:, :S].to(q.dtype), dk[:, :S].to(k.dtype), dv[:, :S].to(v.dtype))
+    return dq[:, :S].to(q.dtype), dk[:, :S].to(k.dtype), dv[:, :S].to(v.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, spec: FlashSpec):
         out, lse = ops.flash_attention_fwd(q, k, v, causal=spec.causal, sm_scale=1.0,
-                                           return_lse=True)
+                                           window=spec.window, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.spec = spec
         return out
@@ -136,4 +151,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(spec)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, spec)
-    return ops.flash_attention_fwd(q, k, v, causal=spec.causal, sm_scale=1.0)
+    return ops.flash_attention_fwd(q, k, v, causal=spec.causal, sm_scale=1.0,
+                                   window=spec.window)

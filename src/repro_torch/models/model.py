@@ -1,11 +1,19 @@
-"""Top-level causal LM: parameter plan, training loss, prefill and decode.
+"""Top-level models: parameter plan, training loss, prefill and decode.
 
-PyTorch counterpart of ``repro.models.model`` for text models: attention
-and SSD (Mamba2) mixers with dense, MoE or no MLP sublayers. Parameters are
-the JAX package's tree as nested dicts of tensors, path for path
+PyTorch counterpart of ``repro.models.model``: causal LMs with attention
+(full or sliding-window) and SSD (Mamba2) mixers with dense, MoE or no MLP
+sublayers, the VLM and the encoder-only audio model. Parameters are the JAX
+package's tree as nested dicts of tensors, path for path
 (``stage0.pos0.attn.wq``, ...), so
 :func:`repro_torch.convert.params_from_arrays` carries JAX weights across
-unchanged. The vision and audio frontends wait for their slice (ROADMAP A7).
+unchanged.
+
+Modality frontends, as in the JAX package (its one allowed stub): a VLM
+batch carries precomputed ``patch_embeds`` (B, P, d_model) and an audio
+batch ``frame_embeds`` (B, S, d_model); a learned linear ``projector`` maps
+them into the stream, the patches before the text tokens. The VLM's loss is
+taken on the text positions only; the audio model is encoder-only and has
+no decode step.
 """
 
 from __future__ import annotations
@@ -20,17 +28,16 @@ from repro_torch.models.blocks import AttnCache
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (chunked_cross_entropy, embed, embedding_spec,
                                        lm_head_spec, logits, rmsnorm, rmsnorm_spec)
-
-
-def _check_frontend(cfg: ModelConfig) -> None:
-    if cfg.frontend != "text":
-        raise NotImplementedError(f"the {cfg.frontend} frontend is not ported yet "
-                                  "(ROADMAP A7)")
+from repro_torch.models.param import ParamSpec
 
 
 def model_spec(cfg: ModelConfig) -> dict:
-    _check_frontend(cfg)
-    spec: dict[str, Any] = {"embed": embedding_spec(cfg)}
+    spec: dict[str, Any] = {}
+    if cfg.frontend in ("text", "vision_stub"):
+        spec["embed"] = embedding_spec(cfg)  # the VLM's text side too
+    if cfg.frontend in ("vision_stub", "audio_stub"):
+        spec["projector"] = {
+            "w": ParamSpec((cfg.d_model, cfg.d_model), cfg.pdtype, ("embed", None))}
     for si, (layout, periods) in enumerate(cfg.stages()):
         spec[f"stage{si}"] = blocks.stage_spec(cfg, layout, periods)
     spec["final_norm"] = rmsnorm_spec(cfg.d_model, "embed")
@@ -38,9 +45,23 @@ def model_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
+def _project(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Precomputed patch or frame embeddings through the projector, in the
+    compute dtype."""
+    dt = cfg.cdtype
+    return x.to(dt) @ params["projector"]["w"].to(dt)
+
+
 def _input_embeds(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    _check_frontend(cfg)
-    return embed(params["embed"], batch["tokens"], cfg)
+    if cfg.frontend == "text":
+        return embed(params["embed"], batch["tokens"], cfg)
+    if cfg.frontend == "vision_stub":
+        text = embed(params["embed"], batch["tokens"], cfg)
+        patches = _project(params, batch["patch_embeds"], cfg)
+        return torch.cat([patches, text], dim=1)  # image tokens first
+    if cfg.frontend == "audio_stub":
+        return _project(params, batch["frame_embeds"], cfg)
+    raise ValueError(cfg.frontend)
 
 
 def _forward_hidden(params, x, cfg, *, positions, caches=None, cache_len=None,
@@ -60,14 +81,18 @@ def _forward_hidden(params, x, cfg, *, positions, caches=None, cache_len=None,
 
 def train_loss(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = True,
                aux_weight: float = 0.01) -> torch.Tensor:
-    """Scalar float32 training loss of ``batch`` (``tokens``, ``labels``
-    (B, S)): the mean next-token NLL plus ``aux_weight`` times the MoE
-    load-balance terms summed over the layers, as in the JAX package (the
-    sum is 0 without MoE layers)."""
+    """Scalar float32 training loss of ``batch`` (``labels`` (B, S) and the
+    frontend's inputs: ``tokens``, ``patch_embeds`` before them, or
+    ``frame_embeds``): the mean next-token NLL (for the VLM over the text
+    positions only) plus ``aux_weight`` times the MoE load-balance terms
+    summed over the layers, as in the JAX package (the sum is 0 without MoE
+    layers)."""
     x = _input_embeds(params, batch, cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device, dtype=torch.int32)[None, :]
     h, _, aux = _forward_hidden(params, x, cfg, positions=positions, remat=remat)
+    if cfg.frontend == "vision_stub":  # the loss after the patch prefix
+        h = h[:, batch["patch_embeds"].shape[1]:]
     nll = chunked_cross_entropy(params["lm_head"], h, batch["labels"], cfg)
     return nll + aux_weight * aux
 
@@ -81,18 +106,34 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype,
 
 def _assemble_cache(raw, layer: LayerSpec, S: int, max_seq: int):
     """A layer's raw prefill cache, stacked over periods, -> its decode cache:
-    (k, v) (periods, B, S, KV, hd) -> linear buffers of ``max_seq`` slots; an
+    (k, v) (periods, B, S, KV, hd) -> linear buffers of ``max_seq`` slots, or
+    for a window shorter than ``max_seq`` a ring of ``window`` slots holding
+    the last ``min(S, window)`` positions, position p in slot p % window; an
     SSD layer's :class:`SsmCache` is already in decode form."""
     if layer.kind != "attn":
         return raw
     k, v = raw
+    W = layer.window
+    if W is not None and W < max_seq:
+        take = min(S, W)
+        slots = (torch.arange(S - take, S, device=k.device) % W)
+        shape = (*k.shape[:2], W, *k.shape[3:])
+        k_buf, v_buf = k.new_zeros(shape), v.new_zeros(shape)
+        k_buf[:, :, slots] = k[:, :, S - take:]
+        v_buf[:, :, slots] = v[:, :, S - take:]
+        return AttnCache(k_buf, v_buf)
     pad = (0, 0, 0, 0, 0, max_seq - S)  # zeros after the prompt, on the S axis
     return AttnCache(F.pad(k, pad), F.pad(v, pad))
 
 
 @torch.no_grad()
 def prefill(params: dict, batch: dict, cfg: ModelConfig, *, max_seq: int):
-    """Run the prompt; return (last-position logits (B, V) float32, caches, S)."""
+    """Run the prompt; return (last-position logits (B, V) float32, caches, S).
+
+    ``batch`` holds the frontend's inputs (``tokens``; ``patch_embeds`` and
+    ``tokens``; ``frame_embeds``); S counts every position of the stream, a
+    VLM's patches too, and ``max_seq`` must hold S plus the steps to come.
+    """
     x = _input_embeds(params, batch, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device, dtype=torch.int32)[None, :]
@@ -109,7 +150,9 @@ def decode_step(params: dict, token: torch.Tensor, caches: list, cache_len: int,
                 cfg: ModelConfig):
     """One serve step: token (B,) int, ``cache_len`` = prompt + generated count
     including this token. Returns (logits (B, V) float32, caches); the caches
-    are updated in place."""
+    are updated in place. An encoder-only model raises ``ValueError``."""
+    if cfg.frontend == "audio_stub":
+        raise ValueError("encoder-only model has no decode step")
     x = embed(params["embed"], token[:, None], cfg)
     positions = torch.full((x.shape[0], 1), cache_len - 1, device=x.device,
                            dtype=torch.int32)

@@ -18,8 +18,10 @@ only if the second replays the first's graph (cross-checked against
 the JAX package's mirror re-derives ``jax.jit``'s key (static arguments and
 operand shapes), this one reads the executor's key itself, which also names
 the problem's ``X`` (its address: a rebuilt problem captures anew). The
-executor keeps at most 16 graphs; a batch whose graph was evicted counts a
-hit here and a capture there.
+executor keeps at most 16 graphs, so a key seen before may have been
+evicted: the mirror asks the executor whether it still holds the key
+(:func:`repro_torch.core.executor.holds`) and counts a batch whose graph was
+evicted as a miss, as the executor counts a capture.
 
 **Result cache.** Every run here is a pure function of its spec: identical
 ``(problem, cluster, method entry, seed, stop targets, executor)``
@@ -57,9 +59,11 @@ def sweep_cache_key(problem, method, num_cells: int, *, num_outer: int,
 class CompileCache:
     """Hit/miss accounting over the warm graph cache (thread-safe).
 
-    ``note(key)`` records one batched dispatch against ``key`` and returns
-    whether it was warm.  ``stats()`` reports the counters the bench and
-    ``GET /stats`` surface: total hits/misses, distinct entries, hit rate.
+    ``note(key)`` records one batched dispatch against ``key``, just before
+    it runs, and returns whether it was warm: whether the executor holds a
+    live graph for the key, which the dispatch then replays.  ``stats()``
+    reports the counters the bench and ``GET /stats`` surface: total
+    hits/misses, distinct entries, hit rate.
     """
 
     def __init__(self):
@@ -70,7 +74,7 @@ class CompileCache:
 
     def note(self, key: tuple) -> bool:
         with self._lock:
-            warm = key in self._seen
+            warm = executor.holds(key)
             self._seen[key] = self._seen.get(key, 0) + 1
             if warm:
                 self.hits += 1

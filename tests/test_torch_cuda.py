@@ -16,7 +16,8 @@ same float32 roundings and makes its integer decisions, so its outputs are
 equal exactly; the flash kernel sums its float32 products in tiles where the
 plain version sums whole rows, so rtol 1e-5 / atol 2e-5 in float32 (the
 CUDA-core kernel), and in bfloat16 (the tensor-core kernel, which rounds P
-to bfloat16 before P V) atol 3e-2.
+to bfloat16 before P V) atol 3e-2; its log-sum-exp rtol 1e-5 with atol
+2e-5 in float32 and 1e-4 in bfloat16, with and without a window.
 """
 
 import numpy as np
@@ -575,6 +576,85 @@ def test_training_step_on_the_kernel_matches_the_plain_forward(cuda, monkeypatch
     torch.testing.assert_close(m_k["loss"], m_p["loss"], rtol=1e-5, atol=0)
     for key in ("exchange/participating", "exchange/dense_step"):
         assert float(m_k[key]) == float(m_p[key])
+
+
+# (B, S, KV, G, hd, window): gemma3's local shape cut to B 1 (W 1,024 at S
+# 2,048, G 2), W = S, W 37 at a ragged S (not a multiple of either kernel's
+# tile), W 1 (only the diagonal), hd 80 and 16 with a window.
+WINDOW_SHAPES = [(1, 2048, 2, 2, 128, 1024), (1, 1000, 2, 2, 128, 1000),
+                 (1, 333, 2, 5, 64, 37), (1, 300, 2, 1, 80, 37), (2, 129, 1, 3, 16, 1),
+                 (1, 700, 1, 2, 128, 200)]
+
+
+def _close(got, want, dtype, lse=False):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-5 if lse else 0,
+                                   atol=1e-4 if lse else 3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,KV,G,hd,W", WINDOW_SHAPES)
+def test_flash_kernel_window_matches_plain(cuda, B, S, KV, G, hd, W, causal, dtype):
+    """The window in both kernels: tiles below it skipped (the stage ring
+    counted by iteration from k_lo), tiles across its edge masked per 64-row
+    consumer, rows whose first tiles are wholly masked wiped by the first
+    real key; the output and the lse against the plain version, one launch,
+    and the output with lse bit for bit the launch without."""
+    q, k, v = _flash_inputs(B, S, KV, G, hd, cuda, dtype)
+    before = ops.LAUNCHES["flash_attention_fwd"]
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal, window=W, return_lse=True)
+    assert ops.LAUNCHES["flash_attention_fwd"] == before + 1
+    want, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal=causal, window=W,
+                                                 return_lse=True)
+    _close(out, want, dtype)
+    _close(lse, want_lse, dtype, lse=True)
+    assert torch.equal(out, ops.flash_attention_fwd(q, k, v, causal=causal, window=W))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 63, 129, 1000, 1024])
+@pytest.mark.parametrize("G", [1, 2])
+def test_flash_kernel_head_dim_80(cuda, G, S, causal, dtype):
+    """hubert-xlarge's hd 80 (five 16-column boxes at the 32-byte swizzle,
+    m64n80k16, five k16 steps of Q K^T in bf16; Tile<80> in float32), its
+    encoder's non-causal path and a ragged S; output and lse."""
+    q, k, v = _flash_inputs(2, S, 2, G, 80, cuda, dtype)
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    want, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal=causal, return_lse=True)
+    _close(out, want, dtype)
+    _close(lse, want_lse, dtype, lse=True)
+    assert torch.equal(out, ops.flash_attention_fwd(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "pixtral-12b"])
+def test_generate_on_the_card_matches_the_host(cuda, arch):
+    """``reduced()`` in float32: gemma3's windowed layers (window 64, a
+    90-token prompt, so decode runs on wrapped rings) and pixtral's patch
+    prefix; greedy tokens equal, one flash launch per attention layer a
+    prefill on the card, none on the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    from repro_torch.models.param import tree_map, tree_materialize
+
+    cfg = get_config(arch).reduced()
+    host = tree_materialize(model.model_spec(cfg), torch.Generator().manual_seed(1), "cpu")
+    prompts = make_token_dataset(2 * 90, cfg.vocab_size, 3).reshape(2, 90)
+    patches = None
+    if cfg.frontend == "vision_stub":
+        patches = np.random.default_rng(3).standard_normal(
+            (2, cfg.num_patch_tokens, cfg.d_model)).astype(np.float32)
+    want = serve.generate(host, prompts, cfg, 6, patch_embeds=patches, device="cpu")
+    got = serve.generate(tree_map(lambda t: t.to(cuda), host), prompts, cfg, 6,
+                         patch_embeds=patches, device=cuda)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    assert got.prefill_flash_launches == cfg.num_layers and got.decode_flash_launches == 0
+    assert want.prefill_flash_launches == 0 and got.logits_finite
 
 
 def test_flash_kernel_takes_prescaled_q(cuda):

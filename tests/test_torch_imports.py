@@ -13,7 +13,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_acpd.py",
-    ROOT / "scripts" / "profile_torch_serve.py", ROOT / "scripts" / "profile_torch_train.py"]
+    ROOT / "scripts" / "profile_torch_serve.py", ROOT / "scripts" / "profile_torch_train.py",
+    ROOT / "scripts" / "flash_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

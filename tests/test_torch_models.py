@@ -19,11 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.configs import get_config as jget_config
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro.models import param as jparam
+from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.configs import get_config as tget_config
 from repro_torch.models import attention as tattn
@@ -64,8 +66,12 @@ def test_config_fields_equal_the_jax_config():
 
 
 def test_unported_configs_raise_naming_the_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP A7"):
-        tget_config("gemma3-27b")
+    """Every config of the JAX package is ported (none waits on the ROADMAP
+    any more); an unknown arch still raises."""
+    assert tconfigs._WAITING == {}
+    assert sorted(tconfigs._MODULES) == sorted(jconfigs._MODULES)
+    assert dataclasses.asdict(tget_config("gemma3-27b")) == dataclasses.asdict(
+        jget_config("gemma3-27b"))
     with pytest.raises(KeyError, match="unknown arch"):
         tget_config("no-such-model")
 
@@ -173,14 +179,35 @@ def test_attention_prefill_and_decode_match_jax(narrow):
 
 
 def test_windows_and_softcaps_raise_on_every_device(narrow):
-    _, tcfg, _, tp = narrow
+    """A window no longer raises: the windowed layer and a windowed decode
+    step over a linear cache equal JAX's. The softcap still raises (ROADMAP
+    A7)."""
+    jcfg, tcfg, jp, tp = narrow
+    ja = jax.tree.map(lambda a: a[0], jp["stage0"]["pos0"]["attn"])
     ta = tparam.tree_map(lambda a: a[0], tp["stage0"]["pos0"]["attn"])
-    x = torch.zeros(1, 4, 256)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tattn.attention(ta, x, tcfg, positions=torch.arange(4), window=8)
+    rng = np.random.default_rng(4)
+    B, S, W = 2, 29, 8
+    x = rng.standard_normal((B, S, 256)).astype(np.float32)
+    out_j, (k_j, v_j) = jattn.attention(ja, jnp.asarray(x), jcfg, positions=jnp.arange(S),
+                                        window=W, block_q=16, block_k=16, return_kv=True)
+    out_t, _ = tattn.attention(ta, _t(x), tcfg, positions=torch.arange(S), window=W,
+                               return_kv=True)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=RTOL, atol=ATOL)
+    full, _ = tattn.attention(ta, _t(x), tcfg, positions=torch.arange(S), window=None)
+    assert not torch.allclose(out_t, full, rtol=RTOL, atol=ATOL)
+    pad = ((0, 0), (0, 4), (0, 0), (0, 0))
+    kc, vc = np.pad(np.asarray(k_j), pad), np.pad(np.asarray(v_j), pad)
+    x1 = rng.standard_normal((B, 1, 256)).astype(np.float32)
+    pos = np.full((B, 1), S, np.int32)
+    out_j, _ = jattn.attention(ja, jnp.asarray(x1), jcfg, positions=jnp.asarray(pos),
+                               window=W, cache=(jnp.asarray(kc), jnp.asarray(vc)),
+                               cache_len=jnp.int32(S + 1))
+    out_t, _ = tattn.attention(ta, _t(x1), tcfg, positions=_t(pos), window=W,
+                               cache=(_t(kc.copy()), _t(vc.copy())), cache_len=S + 1)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=RTOL, atol=ATOL)
     capped = dataclasses.replace(tcfg, attn_logit_softcap=50.0)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        tattn.attention(ta, x, capped, positions=torch.arange(4), window=None)
+    with pytest.raises(NotImplementedError, match="softcap.*ROADMAP A7"):
+        tattn.attention(ta, _t(x[:1, :4]), capped, positions=torch.arange(4), window=None)
 
 
 def test_prefill_and_three_decode_steps_match_jax(narrow):
@@ -231,6 +258,8 @@ def test_decode_from_empty_caches_matches_a_one_token_prefill(narrow):
 NEW_ARCH_PARAMS = {"qwen3-moe-30b-a3b": 30_532_122_624, "qwen3-moe-235b-a22b": 235_093_634_560,
                    "mamba2-780m": 857_379_072, "jamba-1.5-large-398b": 397_711_939_584}
 SERVED = ["qwen3-moe-30b-a3b", "mamba2-780m", "jamba-1.5-large-398b"]
+FRONTEND_WINDOW_PARAMS = {"gemma3-27b": 28_417_621_760, "pixtral-12b": 12_273_996_800,
+                          "hubert-xlarge": 1_260_698_880}
 # The references compiled once per shape, not dispatched op by op.
 j_prefill = jax.jit(jmodel.prefill, static_argnames=("cfg", "max_seq", "mesh", "exploit_window"))
 j_decode = jax.jit(jmodel.decode_step, static_argnames=("cfg", "mesh"))
@@ -251,8 +280,21 @@ def test_moe_and_ssm_configs_equal_the_jax_configs(arch):
 
 @pytest.mark.parametrize("arch", ["pixtral-12b", "hubert-xlarge", "gemma3-27b"])
 def test_frontend_and_window_configs_still_wait_on_the_roadmap(arch):
-    with pytest.raises(KeyError, match="ROADMAP A7"):
-        tget_config(arch)
+    """The three configs that waited on ROADMAP A7 until the windows and the
+    frontends were ported: each equal to JAX's field for field, under
+    ``reduced()`` too, with JAX's stages, windows and parameter count."""
+    jcfg, tcfg = jget_config(arch), tget_config(arch)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(tcfg.reduced()) == dataclasses.asdict(jcfg.reduced())
+    for t, j in ((tcfg, jcfg), (tcfg.reduced(), jcfg.reduced())):
+        assert [([l.window for l in lay], n) for lay, n in t.stages()] == [
+            ([l.window for l in lay], n) for lay, n in j.stages()]
+        assert (t.frontend, t.num_patch_tokens, t.causal, t.supports_decode(),
+                t.supports_long_decode(), t.resolved_head_dim) == (
+            j.frontend, j.num_patch_tokens, j.causal, j.supports_decode(),
+            j.supports_long_decode(), j.resolved_head_dim)
+    n = tparam.num_params(tmodel.model_spec(tcfg))
+    assert n == FRONTEND_WINDOW_PARAMS[arch] == jparam.num_params(jmodel.model_spec(jcfg))
 
 
 def np_params(cfg, seed: int, fan_in: bool = False) -> dict:
@@ -383,3 +425,232 @@ def test_jamba_train_loss_with_aux_and_a_moe_gradient_match_jax():
         with_aux = tmodel.train_loss(tp, tb, tcfg)
     assert float(with_aux - nll) > 0.0
     np.testing.assert_allclose(float(with_aux), float(tv.detach()), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Sliding windows and ring caches (gemma3), the vision and audio frontends
+# (pixtral, hubert). Weights by ``np_params`` at the fan-in init; the JAX
+# references under ``jax.jit``.
+# ---------------------------------------------------------------------------
+
+# gemma3-27b narrowed: 4 heads over 2 KV heads (G = 2, as gemma3's 32 over
+# 16), head_dim 64, window 16, 8 layers: a period of 5 local + 1 global and
+# a 2-layer local remainder stage, as ModelConfig.stages() cuts 62 layers.
+GEMMA_NARROW = dict(d_model=256, num_heads=4, num_kv_heads=2, head_dim=64, d_ff=512,
+                    vocab_size=512, num_layers=8, param_dtype="float32",
+                    compute_dtype="float32")
+
+
+def _gemma_cfgs():
+    over = dict(GEMMA_NARROW)
+    j, t = jget_config("gemma3-27b"), tget_config("gemma3-27b")
+    jl = tuple(dataclasses.replace(l, window=16 if l.window else None) for l in j.layout)
+    tl = tuple(dataclasses.replace(l, window=16 if l.window else None) for l in t.layout)
+    return dataclasses.replace(j, layout=jl, **over), dataclasses.replace(t, layout=tl, **over)
+
+
+@pytest.fixture(scope="module")
+def gemma():
+    jcfg, tcfg = _gemma_cfgs()
+    assert [(len(l), n) for l, n in tcfg.stages()] == [(6, 1), (2, 1)]
+    jp = np_params(tcfg, 5, fan_in=True)
+    return jcfg, tcfg, jp, convert.params_from_arrays(jp, tcfg, device="cpu")
+
+
+@pytest.mark.parametrize("S,steps", [(21, 3), (10, 7)])
+def test_gemma3_prefill_and_decode_past_the_ring_wrap_match_jax(gemma, S, steps):
+    """Local layers keep rings of 16 slots (position p in slot p % 16), the
+    global layer a linear buffer of max_seq: a 21-token prompt leaves the
+    ring wrapped and each step overwrites its oldest slot; a 10-token one
+    wraps at the seventh step. Logits, greedy tokens and every ring and
+    linear buffer equal JAX's within rtol/atol 1e-4."""
+    jcfg, tcfg, jp, tp = gemma
+    B, max_seq = 2, S + steps + 1
+    tokens = np.random.default_rng(S).integers(0, 512, (B, S)).astype(np.int32)
+    lj, cj, _ = j_prefill(jp, {"tokens": jnp.asarray(tokens)}, jcfg, max_seq=max_seq)
+    lt, ct, plen = tmodel.prefill(tp, {"tokens": _t(tokens).long()}, tcfg, max_seq=max_seq)
+    assert plen == S
+    assert ct[0]["pos0"].k.shape[2] == 16 and ct[0]["pos5"].k.shape[2] == max_seq
+    assert ct[1]["pos0"].k.shape[2] == 16
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=RTOL, atol=ATOL)
+    _assert_caches_close(ct, cj)
+    tok_j, tok_t = jnp.argmax(lj, -1).astype(jnp.int32), torch.argmax(lt, -1)
+    for i in range(steps):
+        np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+        lj, cj = j_decode(jp, tok_j, cj, jnp.int32(S + 1 + i), jcfg)
+        lt, ct = tmodel.decode_step(tp, tok_t, ct, S + 1 + i, tcfg)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=RTOL, atol=ATOL)
+        tok_j, tok_t = jnp.argmax(lj, -1).astype(jnp.int32), torch.argmax(lt, -1)
+    np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+    _assert_caches_close(ct, cj)
+    jc0 = jmodel.init_caches(jcfg, B, max_seq, jnp.float32)
+    tc0 = tmodel.init_caches(tcfg, B, max_seq, torch.float32, "cpu")
+    for ts, js in zip(tc0, jc0):
+        for key in js:
+            for a, b in zip(ts[key], js[key]):
+                assert tuple(a.shape) == b.shape
+
+
+def test_gemma3_ring_decode_equals_a_longer_prefill(gemma):
+    """Past the wrap, five decode steps over the rings end where one prefill
+    over the whole prompt does, whose windowed layers run the flash path
+    with the window."""
+    _, tcfg, _, tp = gemma
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(0, 512, (1, 30))).long()
+    whole, _, _ = tmodel.prefill(tp, {"tokens": tokens}, tcfg, max_seq=30)
+    logits, caches, plen = tmodel.prefill(tp, {"tokens": tokens[:, :25]}, tcfg, max_seq=30)
+    for i in range(plen, 30):
+        logits, caches = tmodel.decode_step(tp, tokens[:, i], caches, i + 1, tcfg)
+    np.testing.assert_allclose(logits.numpy(), whole.numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_gemma3_train_loss_and_gradients_match_jax(gemma):
+    """The windowed layers' custom backward inside the whole stack: the loss
+    within rtol 1e-5, the windowed and the global layer's wq and the
+    embedding within rtol 1e-4 (atol 1e-5 of the leaf's scale)."""
+    jcfg, tcfg, jp, tp = gemma
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(0, 512, (2, 40)).astype(np.int32)
+    labels = rng.integers(0, 512, (2, 40)).astype(np.int32)
+    jb = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+
+    def jloss(p):
+        return jmodel.train_loss(p, jb, jcfg, remat=True)
+
+    jv, jg = jax.jit(jax.value_and_grad(jloss))(jp)
+    tp = tparam.tree_map(lambda t: t.clone().requires_grad_(True), tp)
+    tv = tmodel.train_loss(tp, {"tokens": _t(tokens).long(), "labels": _t(labels).long()},
+                           tcfg, remat=True)
+    tv.backward()
+    np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-5)
+    for path in (("stage0", "pos0", "attn", "wq"), ("stage0", "pos5", "attn", "wk"),
+                 ("stage1", "pos1", "attn", "wv"), ("embed", "table")):
+        got, want = tp, jg
+        for k in path:
+            got, want = got[k], want[k]
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.grad.numpy(), want, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(want).max()), err_msg=str(path))
+
+
+@pytest.fixture(scope="module")
+def pixtral():
+    jcfg, tcfg = jget_config("pixtral-12b").reduced(), tget_config("pixtral-12b").reduced()
+    jp = np_params(tcfg, 6, fan_in=True)
+    return jcfg, tcfg, jp, convert.params_from_arrays(jp, tcfg, device="cpu")
+
+
+def test_pixtral_prefill_with_patches_and_decode_match_jax(pixtral):
+    """16 patch embeddings before 24 text tokens (S = 40), max_seq = S + 4,
+    which fits (ROADMAP C7: JAX's CLI sizes it from the text alone)."""
+    jcfg, tcfg, jp, tp = pixtral
+    assert "projector" in tmodel.model_spec(tcfg) and "embed" in tmodel.model_spec(tcfg)
+    rng = np.random.default_rng(12)
+    B, P, T = 2, tcfg.num_patch_tokens, 24
+    tokens = rng.integers(0, tcfg.vocab_size, (B, T)).astype(np.int32)
+    patches = rng.standard_normal((B, P, tcfg.d_model)).astype(np.float32)
+    max_seq = P + T + 4
+    lj, cj, sj = j_prefill(jp, {"tokens": jnp.asarray(tokens),
+                                "patch_embeds": jnp.asarray(patches)}, jcfg, max_seq=max_seq)
+    lt, ct, st = tmodel.prefill(tp, {"tokens": _t(tokens).long(),
+                                     "patch_embeds": _t(patches)}, tcfg, max_seq=max_seq)
+    assert st == sj == P + T
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=RTOL, atol=ATOL)
+    _assert_caches_close(ct, cj)
+    tok_j, tok_t = jnp.argmax(lj, -1).astype(jnp.int32), torch.argmax(lt, -1)
+    for i in range(3):
+        np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+        lj, cj = j_decode(jp, tok_j, cj, jnp.int32(st + 1 + i), jcfg)
+        lt, ct = tmodel.decode_step(tp, tok_t, ct, st + 1 + i, tcfg)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=RTOL, atol=ATOL)
+        tok_j, tok_t = jnp.argmax(lj, -1).astype(jnp.int32), torch.argmax(lt, -1)
+    _assert_caches_close(ct, cj)
+
+
+def test_pixtral_text_only_loss_and_projector_gradient_match_jax(pixtral):
+    jcfg, tcfg, jp, tp = pixtral
+    rng = np.random.default_rng(13)
+    B, P, T = 2, tcfg.num_patch_tokens, 20
+    batch = {"tokens": rng.integers(0, tcfg.vocab_size, (B, T)).astype(np.int32),
+             "labels": rng.integers(0, tcfg.vocab_size, (B, T)).astype(np.int32),
+             "patch_embeds": (rng.standard_normal((B, P, tcfg.d_model)) * 0.02).astype(
+                 np.float32)}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jv, jg = jax.jit(jax.value_and_grad(lambda p: jmodel.train_loss(p, jb, jcfg)))(jp)
+    tb = {k: _t(v).long() if v.dtype == np.int32 else _t(v) for k, v in batch.items()}
+    tp = tparam.tree_map(lambda t: t.clone().requires_grad_(True), tp)
+    tv = tmodel.train_loss(tp, tb, tcfg)
+    tv.backward()
+    np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-5)
+    for path in (("projector", "w"), ("embed", "table"), ("stage0", "pos0", "attn", "wq")):
+        got, want = tp, jg
+        for k in path:
+            got, want = got[k], want[k]
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.grad.numpy(), want, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(want).max()), err_msg=str(path))
+
+
+@pytest.fixture(scope="module")
+def hubert():
+    """hubert-xlarge reduced, at its own head dim 80 (``reduced()`` sets 64)."""
+    jcfg = dataclasses.replace(jget_config("hubert-xlarge").reduced(), head_dim=80)
+    tcfg = dataclasses.replace(tget_config("hubert-xlarge").reduced(), head_dim=80)
+    jp = np_params(tcfg, 7, fan_in=True)
+    return jcfg, tcfg, jp, convert.params_from_arrays(jp, tcfg, device="cpu")
+
+
+def test_hubert_train_loss_prefill_and_no_decode_match_jax(hubert):
+    """Encoder-only at hd 80, not causal: frames through the projector, the
+    loss and the projector's and first layer's gradients, prefill's logits
+    and caches; decode raises in both packages."""
+    jcfg, tcfg, jp, tp = hubert
+    spec = tmodel.model_spec(tcfg)
+    assert "embed" not in spec and "projector" in spec
+    assert tp["stage0"]["pos0"]["attn"]["wq"].shape == (2, 256, 4 * 80)
+    rng = np.random.default_rng(14)
+    B, S = 2, 37
+    frames = (rng.standard_normal((B, S, tcfg.d_model)) * 0.02).astype(np.float32)
+    labels = rng.integers(0, tcfg.vocab_size, (B, S)).astype(np.int32)
+    jb = {"frame_embeds": jnp.asarray(frames), "labels": jnp.asarray(labels)}
+    jv, jg = jax.jit(jax.value_and_grad(lambda p: jmodel.train_loss(p, jb, jcfg)))(jp)
+    tq = tparam.tree_map(lambda t: t.clone().requires_grad_(True), tp)
+    tv = tmodel.train_loss(tq, {"frame_embeds": _t(frames), "labels": _t(labels).long()},
+                           tcfg)
+    tv.backward()
+    np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-5)
+    for path in (("projector", "w"), ("stage0", "pos0", "attn", "wq"),
+                 ("stage0", "pos0", "attn", "wk")):
+        got, want = tq, jg
+        for k in path:
+            got, want = got[k], want[k]
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.grad.numpy(), want, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(want).max()), err_msg=str(path))
+    lj, cj, _ = j_prefill(jp, {"frame_embeds": jnp.asarray(frames)}, jcfg, max_seq=S)
+    lt, ct, st = tmodel.prefill(tp, {"frame_embeds": _t(frames)}, tcfg, max_seq=S)
+    assert st == S
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=RTOL, atol=ATOL)
+    _assert_caches_close(ct, cj)
+    with pytest.raises(ValueError, match="encoder-only"):
+        jmodel.decode_step(jp, jnp.zeros(B, jnp.int32), cj, jnp.int32(S + 1), jcfg)
+    with pytest.raises(ValueError, match="encoder-only"):
+        tmodel.decode_step(tp, torch.zeros(B, dtype=torch.long), ct, S + 1, tcfg)
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "hubert-xlarge"])
+def test_params_from_arrays_carries_the_projector_bit_for_bit(arch):
+    """The JAX tree with its ``projector`` (and, for audio, no ``embed``)
+    loads leaf for leaf, bf16 bits kept."""
+    over = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), **over)
+    tcfg = dataclasses.replace(tget_config(arch).reduced(), **over)
+    jp = jparam.tree_materialize(jmodel.model_spec(jcfg), jax.random.key(3))
+    tp = convert.params_from_arrays(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    assert ("embed" in tp) == (arch == "pixtral-12b")
+    got, want = tp["projector"]["w"], np.asarray(jp["projector"]["w"])
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(), want.view(np.int16))
+    with pytest.raises(ValueError, match="missing"):
+        convert.params_from_arrays({k: v for k, v in jp.items() if k != "projector"}, tcfg,
+                                   device="cpu")

@@ -4,7 +4,11 @@
 ``tests/test_torch_models.py`` (G = 5) on the JAX package's weights, and
 must give the tokens of JAX's prefill plus greedy decode loop, the loop of
 ``repro.launch.serve``. Prompts come from ``make_token_dataset``, which must
-be byte-identical in both packages.
+be byte-identical in both packages. gemma3 (a 5 + 1 window period at
+window 16, a prompt past the window so that decode runs on wrapped rings)
+and pixtral (a patch prefix) run their ``reduced()`` configs; the JAX loop is
+given a ``max_seq`` that holds the patches (ROADMAP C7: its CLI sizes the
+caches from the text alone), as the port's ``generate`` does.
 """
 
 import dataclasses
@@ -114,3 +118,61 @@ def test_generate_without_a_device_or_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.generate({}, np.zeros((1, 4), np.int32), cfg, 2)
+
+
+def _jax_tokens(jp, jcfg, batch, S, gen):
+    """JAX's prefill plus greedy decode loop at max_seq = S + gen."""
+    j_prefill = jax.jit(jmodel.prefill, static_argnames=("cfg", "max_seq"))
+    j_decode = jax.jit(jmodel.decode_step, static_argnames=("cfg",))
+    logits, caches, plen = j_prefill(jp, batch, jcfg, max_seq=S + gen)
+    assert int(plen) == S
+    tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    want = [tok]
+    for i in range(gen - 1):
+        logits, caches = j_decode(jp, tok, caches, jnp.int32(S + 1 + i), jcfg)
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        want.append(tok)
+    return np.stack([np.asarray(t) for t in want], 1)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "pixtral-12b"])
+def test_generate_gives_the_jax_tokens_for_windows_and_patches(arch):
+    jcfg, tcfg = jget_config(arch).reduced(), tget_config(arch).reduced()
+    jp = jparam.tree_materialize(jmodel.model_spec(jcfg), jax.random.key(6))
+    tp = convert.params_from_arrays(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    B, plen, gen = 2, 70, 6  # gemma3 reduced: window 64 < plen
+    prompts = tsynthetic.make_token_dataset(B * plen, tcfg.vocab_size, 2).reshape(B, plen)
+    batch, patches = {"tokens": jnp.asarray(prompts)}, None
+    if tcfg.frontend == "vision_stub":
+        p = min(tcfg.num_patch_tokens, plen // 2)
+        patches = np.random.default_rng(2).standard_normal((B, p, tcfg.d_model)).astype(
+            np.float32)
+        batch["patch_embeds"] = jnp.asarray(patches)
+    S = plen + (0 if patches is None else patches.shape[1])
+    want = _jax_tokens(jp, jcfg, batch, S, gen)
+    res = serve.generate(tp, prompts, tcfg, gen, patch_embeds=patches, device="cpu")
+    np.testing.assert_array_equal(res.tokens, want)
+    assert res.logits_finite
+    assert res.prefill_flash_launches == res.decode_flash_launches == 0
+
+
+def test_generate_refuses_encoders_and_misplaced_patches():
+    hubert, pixtral = (tget_config(a).reduced() for a in ("hubert-xlarge", "pixtral-12b"))
+    with pytest.raises(ValueError, match="encoder-only"):
+        serve.generate({}, np.zeros((1, 4), np.int32), hubert, 2, device="cpu")
+    with pytest.raises(ValueError, match="patch_embeds"):
+        serve.generate({}, np.zeros((1, 4), np.int32), pixtral, 2, device="cpu")
+    with pytest.raises(ValueError, match="patch_embeds"):
+        serve.generate({}, np.zeros((1, 4), np.int32), tget_config("qwen3-14b").reduced(), 2,
+                       patch_embeds=np.zeros((1, 2, 256), np.float32), device="cpu")
+    with pytest.raises(SystemExit, match="encoder-only"):
+        serve.main(["--arch", "hubert-xlarge", "--reduced", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "pixtral-12b"])
+def test_cli_runs_the_window_and_vision_archs_reduced_on_the_cpu(arch, capsys):
+    """The CLI's prompt of 80 tokens (pixtral: after min(16, 40) patches, as
+    JAX's CLI draws them) with caches that hold them all."""
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+                "--prompt-len", "80", "--gen", "3"])
+    assert "generated token ids (batch 0):" in capsys.readouterr().out

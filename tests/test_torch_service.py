@@ -251,6 +251,25 @@ class TestCoalescing:
                 _, solo = _solo_events(spec)
                 np.testing.assert_allclose(h.result().w, solo.w, rtol=1e-5, atol=1e-7)
 
+    def test_mirror_counts_an_evicted_graph_as_a_miss(self):
+        """Past the executor's 16 graphs: 17 signatures (num_outer 1..17), then
+        the first again, whose graph was evicted, then the last, still held.
+        The mirror's misses equal the executor's captures (ROADMAP C6); a
+        mirror keyed on what it has seen, as JAX's is over an unbounded jit
+        cache, would count the repeat of the first as a hit."""
+        svc = _service()
+        executor.clear_cache()
+        traces = executor.STATS["sweep_traces"]
+        for n in [*range(1, 18), 1, 17]:
+            svc.submit("a", _spec(num_outer=n, eval_every=1))
+            svc.submit("b", _spec(num_outer=n, eval_every=1, seed=1))
+            svc.drain()
+        captures = executor.STATS["sweep_traces"] - traces
+        assert svc.counters["batches"] == 19
+        assert svc.compile_cache.stats() == {"entries": 17, "hits": 1, "misses": 18,
+                                             "hit_rate": 1 / 19}
+        assert captures == svc.compile_cache.misses
+
     def test_warm_cache_hit_on_repeat_batch_shape(self):
         svc = _service()
         for _ in range(2):

@@ -172,10 +172,23 @@ def test_no_gradient_means_no_lse(monkeypatch):
 
 
 def test_windows_and_softcaps_raise_naming_the_roadmap():
-    q, k, v, _ = _qkv(3, 1, 8, 1, 1, 16)
-    for spec in (tflash.FlashSpec(True, 4, 8, 8, None), tflash.FlashSpec(True, None, 8, 8, 30.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            tflash.flash_attention(_t(q), _t(k), _t(v), spec)
+    """A windowed spec now runs, its forward and gradients equal to JAX's
+    custom-VJP windowed flash; the softcap spec still raises (ROADMAP A7)."""
+    q, k, v, cot = _qkv(3, 1, 8, 1, 1, 16)
+    spec = tflash.FlashSpec(True, 4, 8, 8, None)
+    jspec = jflash.FlashSpec(True, 4, 8, 8, None)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = jflash.flash_attention(jq, jk, jv, jspec)
+    jgrads = jax.grad(lambda *a: jnp.sum(jflash.flash_attention(*a, jspec) * cot),
+                      argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+    out = tflash.flash_attention(tq, tk, tv, spec)
+    (out * _t(cot)).sum().backward()
+    np.testing.assert_allclose(_np(out), np.asarray(want), rtol=1e-5, atol=1e-5)
+    for t, jg in zip((tq, tk, tv), jgrads):
+        np.testing.assert_allclose(_np(t.grad), np.asarray(jg), rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        tflash.flash_attention(_t(q), _t(k), _t(v), tflash.FlashSpec(True, None, 8, 8, 30.0))
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +227,59 @@ def test_pipelines_give_the_same_batches(model):
     for key in ("tokens", "labels"):
         np.testing.assert_array_equal(_np(tb[key]), np.asarray(jb[key]))
         assert tb[key].dtype == torch.int64
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "hubert-xlarge"])
+def test_frontend_pipelines_give_the_same_batches(arch):
+    """The vision batch (patches, the text cut to seq - p) and the audio batch
+    (frames and labels, no tokens) equal JAX's, draw for draw, over three
+    steps and after a resume, in the compute dtype (float32 and bf16)."""
+    for cfg_of in (lambda c: c.reduced(), lambda c: dataclasses.replace(
+            c.reduced(), compute_dtype="bfloat16")):
+        jcfg, tcfg = cfg_of(jget_config(arch)), cfg_of(tget_config(arch))
+        jpipe, tpipe = JPipeline(jcfg, B, S, seed=4), TPipeline(tcfg, B, S, seed=4, device="cpu")
+        for _ in range(3):
+            jb, tb = jpipe.next_batch(), tpipe.next_batch()
+            assert sorted(jb) == sorted(tb)
+            for key, want in jb.items():
+                want, got = np.asarray(want), tb[key]
+                assert tuple(got.shape) == want.shape, key
+                if got.dtype == torch.bfloat16:
+                    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                                  want.view(np.int16))
+                else:
+                    np.testing.assert_array_equal(_np(got), want)
+        if arch == "pixtral-12b":
+            p = min(tcfg.num_patch_tokens, S // 2)
+            assert tb["patch_embeds"].shape == (B, p, tcfg.d_model)
+            assert tb["tokens"].shape == tb["labels"].shape == (B, S - p)
+        else:
+            assert "tokens" not in tb and tb["frame_embeds"].shape == (B, S, tcfg.d_model)
+        resumed = TPipeline(tcfg, B, S, seed=4, device="cpu")
+        resumed.load_state_dict(tpipe.state_dict())
+        again, jnext = resumed.next_batch(), jpipe.next_batch()
+        for key in jnext:
+            assert torch.equal(again[key].float(), torch.from_numpy(
+                np.asarray(jnext[key]).astype(np.float32)))
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "hubert-xlarge"])
+def test_cli_trains_the_frontend_archs_on_the_cpu(arch, capsys):
+    """``--arch pixtral-12b`` and ``--arch hubert-xlarge`` (reduced) through the
+    CLI's ACPD setup: finite losses; a step refuses a batch whose embeddings
+    lie elsewhere, whatever its leaves are."""
+    ttrain.main(["--arch", arch, "--device", "cpu", "--reduced", "--steps", "2", "--batch",
+                 "4", "--seq", "32", "--log-every", "1"])
+    lines = capsys.readouterr().out.splitlines()
+    assert all(math.isfinite(float(ln.split("loss=")[1].split()[0])) for ln in lines[:2])
+    setup = ttrain.setup_from_args(ttrain.parser().parse_args(
+        ["--arch", arch, "--reduced", "--steps", "2"]))
+    step = tsteps.build_train_step(setup, "cpu")
+    batch = TPipeline(setup.cfg, 8, 32, device="cpu").next_batch()
+    embeds = "patch_embeds" if arch == "pixtral-12b" else "frame_embeds"
+    batch[embeds] = batch[embeds].to("meta")
+    with pytest.raises(ValueError, match=f"{embeds} lies on meta"):
+        step(None, None, None, batch)
 
 
 def test_train_loss_and_gradients_match_jax(model):
