@@ -68,7 +68,19 @@ window and head dim 80 are held to the plain version in both dtypes (W
 1,024, 1,000 and 37, causal and not; hd 80; gemma3's global shape; the
 lse under both) and timed at gemma3's local and global, pixtral's and
 hubert's shapes against SDPA (with the window's boolean mask) and the
-bound. It also checks that
+bound. The logit softcap (cap 50) is held to the plain version in both
+kernels at those four shapes, with and without the lse, and timed beside
+the capless launch; the full-range launch (the model's exploit_window=False)
+equals the windowed launch bit for bit at gemma3's local shape and at S
+32,768; gemma3-27b's full-width prefill runs again on the same weights with
+exploit_window=False (``serve_window_baseline``: the same logits bit for
+bit, its seconds beside the exploiting prefill's); the float32
+prefill-against-decode check runs again with the cap
+(``serve_consistency_window_softcap``), and the training check with the cap
+against autograd through the plain forward (``train_softcap_check``). At the
+end ``dryrun`` records every (architecture x input shape) of
+``repro_torch.launch.dryrun`` on meta tensors and runs once each that fits
+the card, its peak beside the resident estimate. It also checks that
 the bfloat16 flash kernel was compiled to tensor-core (HGMMA) and TMA
 instructions, and that one top-k filter call runs at most four kernels
 without a host sync. Launch counts are zeroed just before each path and
@@ -179,6 +191,12 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 
+# The logit softcap's checks: gemma-2's published attn_logit_softcapping
+# (no config in the repository sets one); the kernel checks take sm_scale 4x
+# the model's, so that standard normal q and k give scores of about +-20,
+# which the cap bends. The full-range launch at prefill_32k's length.
+SOFTCAP, CAP_SCALE, FULL_RANGE_S = 50.0, 4.0, 32_768
+
 # The SDCA kernel's losses by their template argument.
 SDCA_LOSSES = ("ridge", "smoothed_hinge", "logistic")
 HINGE_ROUNDS = 3
@@ -249,7 +267,8 @@ def attention_layers(cfg) -> int:
                for layout, periods in cfg.stages())
 
 
-def serve_path(phase: str, cfg, dev: torch.device) -> dict[str, int]:
+def serve_path(phase: str, cfg, dev: torch.device,
+               baseline: bool = False) -> dict[str, dict[str, int]]:
     """Serve ``cfg`` at its width and depth through ``serve.generate``.
 
     Weights from ``SEED`` on the card, SERVE_B Zipf prompts of SERVE_PLEN
@@ -258,7 +277,9 @@ def serve_path(phase: str, cfg, dev: torch.device) -> dict[str, int]:
     2-token warm-up (cuBLAS, the allocator; for a MoE model it also records
     the first MoE layer's prefill routing), then SERVE_GEN tokens with the
     launch counts zeroed just before and read just after. Emits one line,
-    checks it, frees the weights; returns the launches."""
+    checks it, frees the weights; returns the launches by path: ``phase``'s,
+    and with ``baseline`` also those of ``window_baseline`` on the same
+    weights (path ``phase + "_baseline"``)."""
     import gc
 
     from repro_torch.data.synthetic import make_token_dataset
@@ -336,10 +357,246 @@ def serve_path(phase: str, cfg, dev: torch.device) -> dict[str, int]:
           f"{phase}: the path launched the flash kernel once per attention layer")
     check(gen_res.logits_finite, f"{phase}: all logits finite")
     check(gen_res.tokens.shape == (SERVE_B, SERVE_GEN), f"{phase}: generated (B, gen) tokens")
+    paths = {phase: launches}
+    if baseline:
+        paths[phase + "_baseline"] = window_baseline(phase + "_baseline", params, prompts, cfg,
+                                                     dev, gen_res.prefill_s)
     del params, routings, gen_res
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return paths
+
+
+def window_baseline(phase: str, params: dict, prompts: np.ndarray, cfg, dev: torch.device,
+                    generate_prefill_s: float) -> dict[str, int]:
+    """The windowed model's prefill with ``exploit_window=False`` (the JAX
+    package's baseline: every windowed layer's flash launch loads each tile
+    up to the diagonal and leaves the window to the mask) on the weights
+    already loaded, against the exploiting prefill, in turns (exploiting,
+    baseline, baseline, exploiting), each timed to a synchronize. The logits
+    must be equal bit for bit and the baseline must launch the flash kernel
+    once per attention layer; its first run is the path (launch counts zeroed
+    just before it, read just after). Returns that run's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import prefill
+
+    batch = {"tokens": torch.as_tensor(np.asarray(prompts), dtype=torch.int64, device=dev)}
+    secs: dict[bool, list[float]] = {True: [], False: []}
+    logits, path = {}, None
+    for exploit in (True, False, False, True):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        lg, caches, _ = prefill(params, batch, cfg, max_seq=SERVE_PLEN + SERVE_GEN,
+                                exploit_window=exploit)
+        torch.cuda.synchronize()
+        secs[exploit].append(time.perf_counter() - t0)
+        if not exploit and path is None:
+            path = dict(ops.LAUNCHES)
+        logits.setdefault(exploit, lg)
+        del caches, lg
+    equal = bool(torch.equal(logits[True], logits[False]))
+    want = attention_layers(cfg)
+    windows = [l.window for layout, n in cfg.stages() for l in layout * n]
+    emit(phase, arch=cfg.arch_id, layers=cfg.num_layers, batch=SERVE_B, prompt_len=SERVE_PLEN,
+         windowed_layers=sum(w is not None for w in windows), window=max(w or 0 for w in windows),
+         prefill_s_exploiting=secs[True], prefill_s_baseline=secs[False],
+         generate_prefill_s=generate_prefill_s,
+         baseline_over_exploiting=min(secs[False]) / min(secs[True]),
+         logits_equal_bitwise=equal,
+         max_abs_diff=float((logits[True] - logits[False]).abs().max()),
+         logits_finite=bool(torch.isfinite(logits[False]).all()), launches=path)
+    check(equal, f"{phase}: the baseline's logits equal the exploiting prefill's bit for bit")
+    check(path["flash_attention_fwd"] == want,
+          f"{phase}: the baseline launched the flash kernel once per attention layer ({want})")
+    return path
+
+
+def flash_tiles(S: int, window: int | None, exploit_window: bool = True) -> int:
+    """K/V tiles that the bf16 kernel loads for one (batch, head) in a causal
+    launch: 128-row query blocks, 128-key tiles from k_lo (the first query's
+    window, 0 for a full-range launch) to the diagonal."""
+    total = 0
+    for q0 in range(0, S, 128):
+        k_hi = (min(q0 + 128, S) - 1) // 128 + 1
+        k_lo = max(0, q0 - window + 1) // 128 if window and exploit_window else 0
+        total += k_hi - k_lo
+    return total
+
+
+def flash_softcap_phase(dev: torch.device, gen: torch.Generator, shapes: dict) -> dict:
+    """kernel_flash_attention_softcap: both kernels' capped instantiations
+    (cap SOFTCAP, sm_scale CAP_SCALE times the model's) against the plain
+    version, with and without the lse, at each of ``shapes`` (label: (shape,
+    causal, window)), in both dtypes; bf16 timed beside the capless launch
+    at the same inputs and scale. Tolerances: kernel 3's (float32 rtol 1e-5
+    / atol 1e-5; the lse rtol 1e-5 with atol 2e-5 / 1e-4) and in bf16 atol
+    3e-2 plus one bf16 step of the value (rtol 2^-7): at the larger scale a
+    row's softmax is nearly one key's, so outputs reach that key's value, up
+    to ~5 for standard normal v, where both sides' rounding to bf16 may
+    differ by one step, 2^-5 = 0.03125."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.hlo_analysis import flash_flops
+
+    tol = {"float32": 1e-5, "bfloat16": 3e-2}
+    lse_tol = {"float32": 2e-5, "bfloat16": 1e-4}
+    rows, worst = {}, {"float32": 0.0, "bfloat16": 0.0}
+    for label, (shape, causal, window) in shapes.items():
+        B_, S_, KV_, G_, hd_ = (shape[k] for k in ("B", "S", "KV", "G", "hd"))
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            q = torch.randn(B_, S_, KV_, G_, hd_, generator=gen, device=dev).to(dtype)
+            k_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(dtype)
+            v_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(dtype)
+            kw = dict(causal=causal, window=window, sm_scale=CAP_SCALE * hd_**-0.5)
+            out, lse = ops.flash_attention_fwd(q, k_, v_, softcap=SOFTCAP, return_lse=True, **kw)
+            want, want_lse = ref.flash_attention_fwd_ref(q, k_, v_, softcap=SOFTCAP,
+                                                         return_lse=True, **kw)
+            alone = ops.flash_attention_fwd(q, k_, v_, softcap=SOFTCAP, **kw)
+            torch.cuda.synchronize()
+            rtol = 1e-5 if dtype == torch.float32 else 2**-7
+            err = float((out.float() - want.float()).abs().max())
+            lse_err = float((lse - want_lse).abs().max())
+            capless = ref.flash_attention_fwd_ref(q, k_, v_, **kw)
+            row = dict(
+                shape=shape, causal=causal, window=window, dtype=name, softcap=SOFTCAP,
+                sm_scale=kw["sm_scale"], max_abs_err=err, rtol=rtol, atol=tol[name],
+                lse_max_abs_err=lse_err,
+                within=bool(torch.allclose(out.float(), want.float(), rtol=rtol,
+                                           atol=tol[name])),
+                lse_within=bool(torch.allclose(lse, want_lse, rtol=1e-5, atol=lse_tol[name])),
+                out_unchanged_by_lse=bool(torch.equal(out, alone)),
+                cap_moves_output_by=float((want.float() - capless.float()).abs().max()))
+            del want, want_lse, capless, alone, lse
+            if dtype == torch.bfloat16:
+                nbytes = 2 * q.numel() * q.element_size() + 2 * k_.numel() * k_.element_size()
+                flops = flash_flops(tuple(q.shape), causal, window)
+                row.update(
+                    ms=time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, softcap=SOFTCAP, **kw),
+                               warmup=2, reps=10),
+                    ms_with_lse=time_ms(lambda: ops.flash_attention_fwd(
+                        q, k_, v_, softcap=SOFTCAP, return_lse=True, **kw), warmup=2, reps=10),
+                    capless_ms=time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, **kw),
+                                       warmup=2, reps=10),
+                    plain_ms=time_ms(lambda: ref.flash_attention_fwd_ref(
+                        q, k_, v_, softcap=SOFTCAP, **kw), warmup=1, reps=3),
+                    library_ms=None, library="none: no PyTorch call caps logits",
+                    bound_ms=max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3,
+                    bound_by="operations" if flops / PEAK_BF16 >= nbytes / PEAK_BYTES
+                    else "bytes")
+            worst[name] = max(worst[name], err)
+            rows[f"{label}_{name}"] = row
+            emit("kernel_flash_attention_softcap", at=label, **row)
+            check(row["within"], f"capped flash within tolerance ({label}, {name}: {err})")
+            check(row["lse_within"], f"capped flash lse within tolerance ({label}, {name})")
+            check(row["out_unchanged_by_lse"], f"capped flash output unchanged by the lse "
+                  f"({label}, {name})")
+            del q, k_, v_, out
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, by_shape=rows)
+
+
+def flash_full_range_phase(dev: torch.device, gen: torch.Generator, shape: dict,
+                           window: int) -> dict:
+    """kernel_flash_attention_full_range: the full-range launch (the model's
+    exploit_window=False) at gemma3's local shape against the plain version
+    (both dtypes) and against the windowed launch bit for bit, output and
+    lse; then at B 1, S FULL_RANGE_S the two launches against each other
+    only (the plain version would build a (KV G, S, S) float32 score tensor
+    of ~137 GB). bf16 timed both ways beside the tiles each loads."""
+    from repro_torch.kernels import ops, ref
+
+    tol = {"float32": 1e-5, "bfloat16": 3e-2}
+    rows = {}
+    for label, sh in (("gemma3_local", shape),
+                      (f"gemma3_local_{FULL_RANGE_S}", dict(shape, B=1, S=FULL_RANGE_S))):
+        B_, S_, KV_, G_, hd_ = (sh[k] for k in ("B", "S", "KV", "G", "hd"))
+        dtypes = (torch.float32, torch.bfloat16) if S_ < FULL_RANGE_S else (torch.bfloat16,)
+        for dtype in dtypes:
+            name = str(dtype).removeprefix("torch.")
+            q = torch.randn(B_, S_, KV_, G_, hd_, generator=gen, device=dev).to(dtype)
+            k_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(dtype)
+            v_ = torch.randn(B_, S_, KV_, hd_, generator=gen, device=dev).to(dtype)
+            kw = dict(causal=True, window=window)
+            full, full_lse = ops.flash_attention_fwd(q, k_, v_, exploit_window=False,
+                                                     return_lse=True, **kw)
+            win, win_lse = ops.flash_attention_fwd(q, k_, v_, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            row = dict(shape=sh, window=window, dtype=name,
+                       bitwise_equal_windowed=bool(torch.equal(full, win)),
+                       lse_bitwise_equal_windowed=bool(torch.equal(full_lse, win_lse)),
+                       max_abs_diff_windowed=float((full.float() - win.float()).abs().max()))
+            if S_ < FULL_RANGE_S:
+                want = ref.flash_attention_fwd_ref(q, k_, v_, **kw)
+                rtol = 1e-5 if dtype == torch.float32 else 0.0
+                row.update(max_abs_err=float((full.float() - want.float()).abs().max()),
+                           within=bool(torch.allclose(full.float(), want.float(), rtol=rtol,
+                                                      atol=tol[name])))
+                del want
+            if dtype == torch.bfloat16:
+                tiles = {e: flash_tiles(S_, window, e) for e in (True, False)}
+                row.update(
+                    ms_full_range=time_ms(lambda: ops.flash_attention_fwd(
+                        q, k_, v_, exploit_window=False, **kw), warmup=2, reps=10),
+                    ms_windowed=time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, **kw),
+                                        warmup=2, reps=10),
+                    tiles_full_range=tiles[False], tiles_windowed=tiles[True],
+                    tile_ratio=tiles[False] / tiles[True])
+                row["time_ratio"] = row["ms_full_range"] / row["ms_windowed"]
+            rows[f"{label}_{name}"] = row
+            emit("kernel_flash_attention_full_range", at=label, **row)
+            check(row["bitwise_equal_windowed"] and row["lse_bitwise_equal_windowed"],
+                  f"the full-range launch equals the windowed one bit for bit ({label}, {name})")
+            check(row.get("within", True), f"the full-range launch within tolerance of the "
+                  f"plain version ({label}, {name})")
+            del q, k_, v_, full, win, full_lse, win_lse
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dryrun_phase(dev: torch.device) -> dict:
+    """dryrun: ``repro_torch.launch.dryrun`` for every (architecture x input
+    shape) on one card (the abstract record on meta tensors, one line each),
+    then each combination whose resident bytes fit the card run once at its
+    full shape (``dryrun_run``): its peak memory must be at least the
+    resident estimate and its output finite, or it ran out of memory, which
+    is recorded (the estimate counts no activation beyond remat's period
+    inputs). Returns the seconds of both parts and the runs' outcomes."""
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    capacity = torch.cuda.mem_get_info(dev)[1]
+    records = []
+    for arch in ARCH_IDS:
+        for shape in INPUT_SHAPES:
+            rec = dryrun.run_one(arch, shape, device=dev, capacity=capacity)
+            records.append(rec)
+            emit("dryrun", **dryrun.summary(rec))
+    abstract_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outcomes = {}
+    for rec in records:
+        if rec["status"] != "ok" or not rec["fits"]:
+            continue
+        run = dryrun.run_step(get_config(rec["arch"]), INPUT_SHAPES[rec["shape"]], dev,
+                              seed=SEED)
+        key = f"{rec['arch']}/{rec['shape']}"
+        outcomes[key] = run["status"]
+        emit("dryrun_run", arch=rec["arch"], shape=rec["shape"],
+             resident_bytes=rec["resident_bytes"], capacity_bytes=capacity,
+             resident_parts=rec["roofline"]["memory_stats"], **run)
+        if run["status"] == "ran":
+            check(run["peak_bytes"] >= rec["resident_bytes"],
+                  f"dryrun {key}: the measured peak holds the resident estimate")
+            check(run["finite"], f"dryrun {key}: the step's output is finite")
+    run_s = time.perf_counter() - t0
+    emit("dryrun_seconds", combinations=len(records), abstract_s=abstract_s, run_s=run_s,
+         outcomes=outcomes)
+    check(len(records) == len(ARCH_IDS) * len(INPUT_SHAPES) and all(
+        r["status"] in ("ok", "skipped") for r in records), "dryrun: a record per combination")
+    check("ran" in outcomes.values(), "dryrun: a combination that fits ran on the card")
+    return dict(abstract_s=abstract_s, run_s=run_s, outcomes=outcomes)
 
 
 def consistency_path(phase: str, cfg, dev: torch.device, rtol: float, atol: float,
@@ -489,6 +746,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref, sdca_inner as sdca_mod
     from repro_torch.kernels import topk_filter as topk_mod
+    from repro_torch.launch.hlo_analysis import flash_flops
     from repro_torch.models import model_spec
     from repro_torch.models.param import tree_materialize
 
@@ -533,11 +791,12 @@ def main() -> int:
     # First, while the card holds nothing else: qwen3-moe-30b-a3b's weights
     # alone are 61.09 GB. Then the consistency checks and the hybrid stack.
     launches: dict[str, dict[str, int]] = {}
-    launches["serve_moe"] = serve_path("serve_moe", get_config(MOE_ARCH), dev)
+    launches.update(serve_path("serve_moe", get_config(MOE_ARCH), dev))
     # -- main path 8: sliding windows and ring caches, the vision frontend --
     # gemma3-27b's 56.84 GB of weights, next while the card is empty again.
     t0 = time.perf_counter()
-    launches["serve_window"] = serve_path("serve_window", get_config(WINDOW_ARCH), dev)
+    # ... and on the same weights its exploit_window=False baseline.
+    launches.update(serve_path("serve_window", get_config(WINDOW_ARCH), dev, baseline=True))
     emit("phase_seconds", path="serve_window", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     wcfg = dataclasses.replace(get_config(WINDOW_ARCH), num_layers=WINDOW_CONSIST_LAYERS,
@@ -549,7 +808,15 @@ def main() -> int:
                      "decode step overwrites each ring's oldest slot")
     emit("phase_seconds", path="serve_consistency_window", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    launches["serve_vision"] = serve_path("serve_vision", get_config(VISION_ARCH), dev)
+    consistency_path("serve_consistency_window_softcap",
+                     dataclasses.replace(wcfg, attn_logit_softcap=SOFTCAP), dev, 1e-3, 1e-3,
+                     window=wcfg.layout[0].window, softcap=SOFTCAP,
+                     note="the capped flash kernel in prefill against the capped decode "
+                     "(attend_cache) over wrapped rings")
+    emit("phase_seconds", path="serve_consistency_window_softcap",
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    launches.update(serve_path("serve_vision", get_config(VISION_ARCH), dev))
     emit("phase_seconds", path="serve_vision", seconds=time.perf_counter() - t0)
     consistency_path(
         "serve_consistency_moe", dataclasses.replace(
@@ -557,7 +824,7 @@ def main() -> int:
             compute_dtype="float32", moe_capacity_factor=MOE_CONSIST_CF),
         dev, 1e-3, 1e-3, moe_capacity_factor=MOE_CONSIST_CF,
         note="capacity factor 16: C > N, so no slot drops in either prefill")
-    launches["serve_ssm"] = serve_path("serve_ssm", get_config(SSM_ARCH), dev)
+    launches.update(serve_path("serve_ssm", get_config(SSM_ARCH), dev))
     consistency_path(
         "serve_consistency_ssm", dataclasses.replace(
             get_config(SSM_ARCH), num_layers=CONSIST_LAYERS, param_dtype="float32",
@@ -1920,11 +2187,7 @@ def main() -> int:
                              warmup=2, reps=10)
         sdpa_err = float((sdpa(qs, ks, vs, enable_gqa=True, **lib_kw).transpose(1, 2)
                           .reshape(q.shape).float() - out.float()).abs().max())
-        rows = np.arange(S_)
-        lo = np.zeros(S_, np.int64) if window is None else np.maximum(0, rows - window + 1)
-        hi = rows if causal else np.full(S_, S_ - 1)
-        pairs = int((hi - lo + 1).sum())  # (query, key) pairs that the mask keeps
-        flops = 4 * B_ * KV_ * G_ * hd_ * pairs  # q.k and p.v
+        flops = flash_flops(tuple(q.shape), causal, window)  # the pairs the mask keeps
         nbytes = 2 * q.numel() * q.element_size() + 2 * k_.numel() * k_.element_size()
         return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                     library_max_abs_diff=sdpa_err,
@@ -1974,6 +2237,15 @@ def main() -> int:
              seconds=time.perf_counter() - t0, **at_new[label])
         del q, k_, v_
     torch.cuda.empty_cache()
+
+    # -- kernel 3c: the logit softcap and the full-range launch --------------
+    t0 = time.perf_counter()
+    at_cap = flash_softcap_phase(dev, gen, {
+        "gemma3_local": (gemma_shape, True, 1024), "gemma3_global": (gemma_shape, True, None),
+        "pixtral": (pixtral_shape, True, None), "hubert_group": (hubert_shape, False, None)})
+    at_full = flash_full_range_phase(dev, gen, gemma_shape, 1024)
+    emit("phase_seconds", path="kernel_flash_attention_softcap_full_range",
+         seconds=time.perf_counter() - t0)
 
     # -- kernel 3b: the flash kernel at the training path's shapes, with lse --
     # At the serve shape and at codeqwen1.5-7b's per-group training shape
@@ -2053,7 +2325,15 @@ def main() -> int:
             "with_lse"), without_lse=row["ms"], plain=row["plain_ms"],
             library=row["library_ms"], bound=row["bound_ms"], bound_by=row["bound_by"])
     kernels["flash_attention_fwd"].update(
-        max_abs_err=max(flash_err.values()), out_max_abs_err_by_shape=out_err,
+        max_abs_err=max(*flash_err.values(), *at_cap["max_abs_err"].values()),
+        softcap_max_abs_err=at_cap["max_abs_err"],
+        softcap_ms_by_shape={k: {m: r.get(m) for m in ("ms", "ms_with_lse", "capless_ms",
+                                                       "plain_ms", "bound_ms")}
+                             for k, r in at_cap["by_shape"].items() if "ms" in r},
+        full_range_ms_by_shape={k: {m: r.get(m) for m in ("ms_full_range", "ms_windowed",
+                                                          "tile_ratio", "time_ratio")}
+                                for k, r in at_full.items() if "ms_full_range" in r},
+        out_max_abs_err_by_shape=out_err,
         window_hd80_max_abs_err=new_err,
         lse_max_abs_err=lse_err, ms_with_lse=lse_ms["serve_bfloat16"]["with_lse"],
         ms_by_shape=lse_ms)
@@ -2061,7 +2341,7 @@ def main() -> int:
 
     # -- main path 4: serve qwen3-14b at full width and depth ----------------
     cfg = get_config(SERVE_ARCH)
-    launches["serve"] = serve_path("serve", cfg, dev)
+    launches.update(serve_path("serve", cfg, dev))
 
     # -- the kernel's prefill against the cache's decode, on the card --------
     consistency_path("serve_consistency", dataclasses.replace(
@@ -2303,7 +2583,67 @@ def main() -> int:
     worst = max(checks["fan_in"]["dense_vs_plain_float32"].values())
     check(worst <= CHECK_F32_RTOL, f"in float32 the dense exchange's update is within "
           f"{CHECK_F32_RTOL} of the plain gradient (worst {worst})")
-    del cbatch, grouped
+    del grouped
+
+    # -- train_softcap_check: the capped kernel forward and the backward ----
+    # At train_check's width, depth and batch with the cap of SOFTCAP: the
+    # kernel path (the capped kernel's forward with lse, the PyTorch
+    # FlashAttention-2 backward through the cap) against autograd through the
+    # plain capped forward swapped in for models.flash.flash_attention (the
+    # S^2 scores built and differentiated by PyTorch), at both inits, with
+    # train_check's tolerances and leaves.
+    from repro_torch.models import attention as attn_mod
+
+    t0 = time.perf_counter()
+    ccfg = dataclasses.replace(tcfg, attn_logit_softcap=SOFTCAP)
+
+    def autograd_plain(q, k, v, spec):
+        return ref.flash_attention_fwd_ref(q, k, v, causal=spec.causal, sm_scale=1.0,
+                                           window=spec.window, softcap=spec.softcap)
+
+    cap_checks = {}
+    for init in ("rule", "fan_in"):
+        params = fresh_params()
+        if init == "fan_in":
+            params = fan_in_params(params, tcfg)
+        ops.reset_launch_counts()
+        loss_k, grads_k = train_steps.value_and_grad(lambda p, b: train_loss(p, b, ccfg),
+                                                     params, cbatch)
+        torch.cuda.synchronize()
+        launched = ops.LAUNCHES["flash_attention_fwd"]
+        kernel_flash = attn_mod.flash_attention
+        attn_mod.flash_attention = autograd_plain
+        try:
+            loss_p, grads_p = train_steps.value_and_grad(lambda p, b: train_loss(p, b, ccfg),
+                                                         params, cbatch)
+            torch.cuda.synchronize()
+        finally:
+            attn_mod.flash_attention = kernel_flash
+        cap_checks[init] = dict(
+            loss_kernel=float(loss_k), loss_plain_autograd=float(loss_p),
+            loss_rel_diff=abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+            kernel_flash_launches=launched,
+            kernel_vs_plain={p: rel_l2(a, b) for p, a, b in zip(
+                paths, tree_flatten(grads_k)[0], tree_flatten(grads_p)[0])})
+        del params, grads_k, grads_p
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("train_softcap_check", arch=ccfg.arch_id, layers=TRAIN_LAYERS, batch=CHECK_B,
+         seq=CHECK_SEQ, dtype="bfloat16", softcap=SOFTCAP, loss_rtol=CHECK_LOSS_RTOL,
+         grad_rtol=CHECK_GRAD_RTOL, checked_at_rule_init=above_attention,
+         seconds=time.perf_counter() - t0, **cap_checks)
+    for init, row in cap_checks.items():
+        check(row["kernel_flash_launches"] == 2 * TRAIN_LAYERS,
+              f"capped {init}: the forward and recompute launched the flash kernel once a "
+              "layer each")
+        check(row["loss_rel_diff"] <= CHECK_LOSS_RTOL,
+              f"capped {init}: kernel loss within {CHECK_LOSS_RTOL} of autograd's")
+        leaves = paths if init == "fan_in" else above_attention
+        worst = max(row["kernel_vs_plain"][p] for p in leaves)
+        check(worst <= CHECK_GRAD_RTOL,
+              f"capped {init}: kernel-path gradients within {CHECK_GRAD_RTOL} (relative L2) "
+              f"of autograd through the plain forward on {len(leaves)} leaves (worst {worst})")
+    del cbatch
 
     # -- train_resume: the run resumed from its step-6 checkpoint ------------
     # No deterministic-algorithms switch is set: the step's kernels (the
@@ -2442,6 +2782,9 @@ def main() -> int:
               f"hubert {init}: kernel gradients within {CHECK_GRAD_RTOL} (relative L2) of "
               f"the plain ones on {len(leaves)} leaves (worst {worst})")
     del hbatch
+
+    # -- dryrun: every (architecture x input shape), then the ones that fit --
+    dryrun_phase(dev)
 
     for name, entry in kernels.items():
         entry["launches"] = sum(path[name] for path in launches.values())

@@ -7,12 +7,15 @@ Each side is launched through its own revision's wrapper
 ``csrc/flash_attn.cu`` into that tree's ``_build/`` and declares its launch
 signature, so the script holds no copy of either ABI. The two sides are
 launched in turns (base, change, change, base, ...) on the same bfloat16
-inputs at the serve paths' causal shapes: qwen3-14b's (B 4, S 2,048, KV 8,
-G 5, hd 128) and qwen3-moe-30b-a3b's (KV 4, G 8). Each turn is the mean of
-``--reps`` launches by CUDA events. The two outputs must be equal bit for
-bit (a window of none takes the same path). Prints one JSON object: the
-card, and per shape each side's median ms, the ratio of the medians and the
-count of turns the change won.
+inputs at the main paths' shapes, with each shape's own arguments (all of
+them ones that both revisions' wrappers take): qwen3-14b's causal prefill
+(B 4, S 2,048, KV 8, G 5, hd 128), qwen3-moe-30b-a3b's (KV 4, G 8),
+gemma3-27b's windowed layer (KV 16, G 2, window 1,024) and hubert-xlarge's
+per-group training forward (B 2, S 1,024, KV 16, G 1, hd 80, not causal).
+Each turn is the mean of ``--reps`` launches by CUDA events. The two
+outputs are compared bit for bit. Prints one JSON object: the card, and
+per shape each side's median ms, the ratio of the medians and the count of
+turns the change won.
 
     mkdir -p .proof/base && git archive HEAD~1 src | tar -x -C .proof/base
     python3 scripts/flash_ab.py --base .proof/base/src
@@ -31,7 +34,11 @@ import sys
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-SHAPES = {"qwen3_14b": (4, 2048, 8, 5, 128), "qwen3_moe": (4, 2048, 4, 8, 128)}
+# label: ((B, S, KV, G, hd), launch arguments)
+SHAPES = {"qwen3_14b": ((4, 2048, 8, 5, 128), dict(causal=True)),
+          "qwen3_moe": ((4, 2048, 4, 8, 128), dict(causal=True)),
+          "gemma3_local": ((4, 2048, 16, 2, 128), dict(causal=True, window=1024)),
+          "hubert_group": ((2, 1024, 16, 1, 80), dict(causal=False))}
 
 
 def _is_port(name: str) -> bool:
@@ -74,7 +81,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()}
     gen = torch.Generator(device=dev).manual_seed(7)
-    for label, (B, S, KV, G, hd) in SHAPES.items():
+    for label, ((B, S, KV, G, hd), kw) in SHAPES.items():
         q = torch.randn(B, S, KV, G, hd, generator=gen, device=dev).bfloat16()
         k = torch.randn(B, S, KV, hd, generator=gen, device=dev).bfloat16()
         v = torch.randn(B, S, KV, hd, generator=gen, device=dev).bfloat16()
@@ -86,7 +93,7 @@ def main() -> int:
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(args.reps):
-                outs[side] = launch(q, k, v, causal=True)
+                outs[side] = launch(q, k, v, **kw)
             stop.record()
             torch.cuda.synchronize()
             return start.elapsed_time(stop) / args.reps
@@ -99,7 +106,7 @@ def main() -> int:
             for side in order:
                 ms[side].append(turn(side))
         med = {side: statistics.median(v) for side, v in ms.items()}
-        out[label] = dict(shape=dict(B=B, S=S, KV=KV, G=G, hd=hd), ms=ms,
+        out[label] = dict(shape=dict(B=B, S=S, KV=KV, G=G, hd=hd), args=kw, ms=ms,
                           median_ms=med, change_over_base=med["change"] / med["base"],
                           change_wins=sum(c < b for b, c in zip(ms["base"], ms["change"])),
                           bitwise_equal=bool(torch.equal(outs["base"], outs["change"])))

@@ -1,17 +1,31 @@
 // GQA flash-attention forward for Hopper, causal or not, with or without a
-// sliding window.
+// sliding window, with or without a logit softcap.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attn.py::
 // flash_attention_fwd_pallas (body _flash_fwd_kernel). For q (B, S, KV, G, hd)
 // and k, v (B, S, KV, hd):
 //
-//     out[b, s, h, g] = softmax_t(sm_scale * q[b, s, h, g] . k[b, t, h]) v[b, t, h]
+//     out[b, s, h, g] = softmax_t(cap(sm_scale * q[b, s, h, g] . k[b, t, h])) v[b, t, h]
 //
 // over t < S (and t <= s when causal, and s - t < window when a window is
 // given), with the softmax in float32, written in q's dtype. The window is the
 // JAX package's windowed flash_attention (src/repro/models/flash.py, _mask),
-// one-sided also when not causal; its Pallas kernel has none. Masked scores are
-// -1e30, not -inf, as on the TPU. One source, two kernels, chosen by dtype:
+// one-sided also when not causal; its Pallas kernel has none. cap(x) is x
+// without a softcap and softcap * tanh(x / softcap) with one (the JAX
+// package's _scores, applied to the scaled float32 score before the mask);
+// the cap is a template argument, so a launch without it runs the code it ran
+// before the cap existed. Masked scores are -1e30, not -inf, as on the TPU.
+//
+// Full-range launches (full_range = 1, the model's exploit_window=False): the
+// window still masks each row, but no tile below it is skipped; every tile
+// from 0 to the diagonal is loaded. A row's tiles wholly below its window
+// then come before its first real key. With the finite -1e30 each of their
+// scores adds exp(-1e30 - (-1e30)) = 1 to l and its value row to O, and the
+// first real key's correction exp(-1e30 - m) = 0 multiplies both by exactly
+// 0 (they are finite: at most S ones and S value rows), so from there the row
+// holds what the windowed launch holds, and the two launches agree bit for
+// bit (up to the sign of an exact zero). One source, two kernels, chosen by
+// dtype:
 //
 // bfloat16: flash_fwd_bf16, both products on the tensor cores.
 //   One block per (128 query positions, b, query head). Warpgroups 0 and 1
@@ -36,8 +50,9 @@
 //
 //   and ends with O / max(l, 1e-30), stored from registers with the rows
 //   at or past S skipped. TMA fills rows past S with zeros and the kp < S
-//   mask drops them. KV tiles above the diagonal, and those wholly below the
-//   window of the block's first query, are never loaded; only the diagonal
+//   mask drops them. KV tiles above the diagonal, and (unless full_range)
+//   those wholly below the window of the block's first query, are never
+//   loaded; only the diagonal
 //   tile, the tiles that cross the window's lower edge and the ragged last
 //   tile are masked, each consumer warpgroup judging its own 64 rows. The
 //   producer and both consumers walk the same tiles k_lo .. k_hi - 1 and
@@ -63,6 +78,10 @@
 //   Numerics: P is rounded to bf16 before P V, as in every tensor-core
 //   flash kernel; the TPU reference computes p v in float32
 //   (flash_attn.py:75). Against the float32 plain version it holds atol 3e-2.
+//   The softcap is taken with tanhf (CUDA's float32 tanh, within 2 ulp), not
+//   tanh.approx.f32 (relative error 2^-11: at a cap of 50 up to 0.02 on a
+//   capped score), on the accumulator of Q K^T: x = cap log2 e *
+//   tanhf(s sm_scale / cap), then the mask.
 //
 // float32: flash_fwd_f32, on the CUDA cores (TF32 would miss the 1e-5 that
 //   the float32 callers hold). One block per (query tile, b, kv head),
@@ -131,12 +150,12 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-template <int HD>
+template <int HD, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
               float* __restrict__ lse, int S, int KV, int G, int causal, int window,
-              float sm_scale) {
+              int full_range, float sm_scale, float cap) {
   using L = Tile<HD>;
   constexpr int BK = L::BK;
   constexpr int CPT = BK / 16;  // score columns per thread: tx + 16 j
@@ -185,8 +204,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int q_last = min(q0 + bq - 1, S - 1);
   int nk = (S + BK - 1) / BK;
   if (causal) nk = min(nk, q_last / BK + 1);  // skip tiles above the diagonal
-  // Skip tiles wholly below the window of the tile's first query.
-  const int t_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  // Skip tiles wholly below the window of the tile's first query, unless
+  // the launch is full-range.
+  const int t_lo = window > 0 && !full_range ? max(0, q0 - window + 1) / BK : 0;
 
   for (int t = t_lo; t < nk; ++t) {
     const int k0 = t * BK;
@@ -225,12 +245,13 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
-    // Mask, then the online-softmax update; p goes to shared memory.
+    // Cap, mask, then the online-softmax update; p goes to shared memory.
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
+        if (kCap) s[i][j] = cap * tanhf(s[i][j] / cap);
         const int kp = k0 + tx + 16 * j;
         const bool ok = kp < S && (!causal || kp <= qpos[i]) &&
                         (window <= 0 || qpos[i] - kp < window);
@@ -535,13 +556,15 @@ struct Bf16Tile {
   }
 };
 
-template <int HD>
+// scale_log2 = sm_scale log2 e; with kCap, cap_log2 = cap log2 e and
+// scale_over_cap = sm_scale / cap.
+template <int HD, bool kCap>
 __global__ void __launch_bounds__(kThreadsBf16, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
                float* __restrict__ lse, int S, int H, int G, int causal, int window,
-               float scale_log2) {
+               int full_range, float scale_log2, float cap_log2, float scale_over_cap) {
   using L = Bf16Tile<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -558,10 +581,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
   const int kvh = head / G;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest causal tiles first
   const int q_last = min(q0 + kBQ, S) - 1;
-  // K/V tiles k_lo .. k_hi - 1: none above the diagonal, none wholly below
-  // the window of the block's first query (q0 - window + 1 is its first key).
+  // K/V tiles k_lo .. k_hi - 1: none above the diagonal and, unless the
+  // launch is full-range, none wholly below the window of the block's first
+  // query (q0 - window + 1 is its first key).
   const int k_hi = causal ? q_last / kBK + 1 : (S + kBK - 1) / kBK;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  const int k_lo = window > 0 && !full_range ? max(0, q0 - window + 1) / kBK : 0;
   const int n_tiles = k_hi - k_lo;
 
   if (tid == 0) {
@@ -649,15 +673,16 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
     wgmma_wait_all();
     fence_regs<kBK / 2>(sc);
 
-    // Scale into the log2 domain; mask only the diagonal, ragged and window
-    // edge tiles of this warpgroup's rows r_lo .. r_lo + 63.
+    // Scale (and cap) into the log2 domain; mask only the diagonal, ragged
+    // and window edge tiles of this warpgroup's rows r_lo .. r_lo + 63 (a
+    // full-range launch's tiles below the window are edge tiles too).
     const int r_lo = q0 + wg * 64;
     const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > r_lo) ||
                       (window > 0 && r_lo + 63 - k0 >= window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < kBK / 2; ++j) {
-      float x = sc[j] * scale_log2;
+      float x = kCap ? cap_log2 * tanhf(sc[j] * scale_over_cap) : sc[j] * scale_log2;
       if (edge) {
         const int kp = k0 + 8 * (j / 4) + col0 + (j & 1);
         if (kp > kp_max[(j >> 1) & 1] || kp < kp_min[(j >> 1) & 1]) x = kNegInf;
@@ -760,10 +785,10 @@ bool encode_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int hd,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, bool kCap>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                int S, int KV, int G, int causal, int window, float sm_scale,
-                cudaStream_t stream) {
+                int S, int KV, int G, int causal, int window, int full_range, float sm_scale,
+                float cap, cudaStream_t stream) {
   using L = Bf16Tile<HD>;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
@@ -776,47 +801,61 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, float* l
   // launch (rather than hang) if the build left the pool smaller than the
   // 24 + 240 split needs.
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, flash_fwd_bf16<HD>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_fwd_bf16<HD, kCap>);
   if (err != cudaSuccess) return (int)err;
   if (attr.numRegs * kThreadsBf16 < 128 * 24 + kConsumers * 240)
     return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(flash_fwd_bf16<HD>,
+  err = cudaFuncSetAttribute(flash_fwd_bf16<HD, kCap>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)L::kSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * KV * G, (S + kBQ - 1) / kBQ);
-  flash_fwd_bf16<HD><<<grid, kThreadsBf16, L::kSmem, stream>>>(
+  flash_fwd_bf16<HD, kCap><<<grid, kThreadsBf16, L::kSmem, stream>>>(
       q_map, k_map, v_map, (__nv_bfloat16*)out, lse, S, KV * G, G, causal, window,
-      sm_scale * kLog2e);
+      full_range, sm_scale * kLog2e, kCap ? cap * kLog2e : 0.f, kCap ? sm_scale / cap : 0.f);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool kCap>
 int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-               int S, int KV, int G, int causal, int window, float sm_scale,
-               cudaStream_t stream) {
+               int S, int KV, int G, int causal, int window, int full_range, float sm_scale,
+               float cap, cudaStream_t stream) {
   const size_t smem = Tile<HD>::bytes;
   if (B * KV > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_f32<HD, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int bq = kRows / G;
   const dim3 grid((S + bq - 1) / bq, B * KV);
-  flash_fwd_f32<HD><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_f32<HD, kCap><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, S, KV, G, causal,
-      window, sm_scale);
+      window, full_range, sm_scale, cap);
   return (int)cudaGetLastError();
 }
 
+template <int HD, bool kCap>
+int launch_typed(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                 int S, int KV, int G, int dtype, int causal, int window, int full_range,
+                 float sm_scale, float cap, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<HD, kCap>(q, k, v, out, lse, B, S, KV, G, causal, window, full_range,
+                                sm_scale, cap, stream);
+  if (dtype == 1)
+    return launch_bf16<HD, kCap>(q, k, v, out, lse, B, S, KV, G, causal, window, full_range,
+                                 sm_scale, cap, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// softcap 0: none (the capless instantiations).
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
-           int KV, int G, int dtype, int causal, int window, float sm_scale,
-           cudaStream_t stream) {
-  if (dtype == 0)
-    return launch_f32<HD>(q, k, v, out, lse, B, S, KV, G, causal, window, sm_scale, stream);
-  if (dtype == 1)
-    return launch_bf16<HD>(q, k, v, out, lse, B, S, KV, G, causal, window, sm_scale, stream);
-  return (int)cudaErrorInvalidValue;
+           int KV, int G, int dtype, int causal, int window, int full_range, float sm_scale,
+           float softcap, cudaStream_t stream) {
+  if (softcap > 0.f)
+    return launch_typed<HD, true>(q, k, v, out, lse, B, S, KV, G, dtype, causal, window,
+                                  full_range, sm_scale, softcap, stream);
+  return launch_typed<HD, false>(q, k, v, out, lse, B, S, KV, G, dtype, causal, window,
+                                 full_range, sm_scale, 0.f, stream);
 }
 
 }  // namespace
@@ -824,22 +863,25 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 extern "C" {
 
 // dtype: 0 float32 (CUDA-core kernel), 1 bfloat16 (wgmma + TMA kernel). window:
-// 0 for none, else query s sees key t only if s - t < window. lse may be null
-// (no log-sum-exp written). The wrapper checks every argument first.
+// 0 for none, else query s sees key t only if s - t < window; full_range 1
+// loads the tiles below the window too (the mask alone applies it). softcap:
+// 0 for none, else scores s become softcap * tanh(s / softcap). lse may be
+// null (no log-sum-exp written). The wrapper checks every argument first.
 int flash_attn_launch(const void* q, const void* k, const void* v, void* out, void* lse,
                       int B, int S, int KV, int G, int hd, int dtype, int causal, int window,
-                      float sm_scale, void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || G < 1 || G > kRows || window < 0)
+                      int full_range, float sm_scale, float softcap, void* stream) {
+  if (B < 1 || S < 1 || KV < 1 || G < 1 || G > kRows || window < 0 || !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   float* f = (float*)lse;
-  const int c = causal, w = window;
+  const int c = causal, w = window, fr = full_range;
+  const float sc = sm_scale, cap = softcap;
   switch (hd) {
-    case 16: return launch<16>(q, k, v, out, f, B, S, KV, G, dtype, c, w, sm_scale, st);
-    case 32: return launch<32>(q, k, v, out, f, B, S, KV, G, dtype, c, w, sm_scale, st);
-    case 64: return launch<64>(q, k, v, out, f, B, S, KV, G, dtype, c, w, sm_scale, st);
-    case 80: return launch<80>(q, k, v, out, f, B, S, KV, G, dtype, c, w, sm_scale, st);
-    case 128: return launch<128>(q, k, v, out, f, B, S, KV, G, dtype, c, w, sm_scale, st);
+    case 16: return launch<16>(q, k, v, out, f, B, S, KV, G, dtype, c, w, fr, sc, cap, st);
+    case 32: return launch<32>(q, k, v, out, f, B, S, KV, G, dtype, c, w, fr, sc, cap, st);
+    case 64: return launch<64>(q, k, v, out, f, B, S, KV, G, dtype, c, w, fr, sc, cap, st);
+    case 80: return launch<80>(q, k, v, out, f, B, S, KV, G, dtype, c, w, fr, sc, cap, st);
+    case 128: return launch<128>(q, k, v, out, f, B, S, KV, G, dtype, c, w, fr, sc, cap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

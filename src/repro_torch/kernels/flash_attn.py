@@ -3,9 +3,15 @@
 Replaces the TPU kernel ``repro.kernels.flash_attn.flash_attention_fwd_pallas``:
 GQA attention forward over q (B, S, KV, G, hd) and k, v (B, S, KV, hd),
 causal or not, optionally over a sliding window (query i sees key j only
-if ``i - j < window``, the JAX package's ``FlashSpec`` mask), with an online
-softmax in float32 and the KV tiles above the diagonal or below the window
-skipped. See the CUDA source for the design and what bounds it.
+if ``i - j < window``, the JAX package's ``FlashSpec`` mask) and with a
+logit softcap (each scaled score s becomes ``softcap * tanh(s / softcap)``
+before the mask, the JAX package's ``_scores``), with an online softmax in
+float32 and the KV tiles above the diagonal or below the window skipped.
+``exploit_window=False`` (the model's option of that name) loads the tiles
+below the window too and leaves the window to the mask: the same function,
+computed over every key up to the diagonal, bit for bit the windowed
+launch's result. See the CUDA source for the design and what
+bounds it.
 
 The launch dispatches on dtype to one of the source's two kernels, and both
 compute the same function: bfloat16 goes to the tensor-core kernel (both
@@ -43,18 +49,21 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attn_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+        lib.flash_attn_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, p]
         lib.flash_attn_launch.restype = i
         lib._typed = True
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None,
+           softcap: float | None = None) -> None:
     if q.dim() != 5:
         raise ValueError(f"flash_attn: q must be (B, S, KV, G, hd), got {tuple(q.shape)}")
     B, S, KV, G, hd = q.shape
     if window is not None and not 1 <= window < 2**31:
         raise ValueError(f"flash_attn: window must be a positive int32, got {window}")
+    if softcap is not None and not 0 < softcap < float("inf"):
+        raise ValueError(f"flash_attn: softcap must be a positive finite float, got {softcap}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash_attn: {name} must lie on one CUDA device, "
@@ -79,14 +88,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
 
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              causal: bool = True, sm_scale: float | None = None,
-                             window: int | None = None, return_lse: bool = False):
+                             window: int | None = None, return_lse: bool = False,
+                             softcap: float | None = None, exploit_window: bool = True):
     """Launch the kernel for q's dtype; returns (B, S, KV, G, hd) in that dtype,
-    and with ``return_lse`` also the float32 log-sum-exp (B, KV, G, S).
+    and with ``return_lse`` also the float32 log-sum-exp (B, KV, G, S) of the
+    capped scores.
 
-    bfloat16 runs the tensor-core kernel, float32 the CUDA-core kernel. The
-    launch is asynchronous on the current stream.
+    bfloat16 runs the tensor-core kernel, float32 the CUDA-core kernel, each
+    in its capped instantiation when ``softcap`` is set. The launch is
+    asynchronous on the current stream.
     """
-    _check(q, k, v, window)
+    _check(q, k, v, window, softcap)
     B, S, KV, G, hd = q.shape
     scale = hd**-0.5 if sm_scale is None else float(sm_scale)
     lib = _lib()
@@ -98,6 +110,7 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
         code = lib.flash_attn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      out.data_ptr(), None if lse is None else lse.data_ptr(),
                                      B, S, KV, G, hd, _DTYPES[q.dtype], int(causal),
-                                     window or 0, scale, stream)
+                                     window or 0, int(not exploit_window), scale,
+                                     float(softcap or 0.0), stream)
     _build.check(lib, NAME, code, "flash_attn launch")
     return (out, lse) if return_lse else out

@@ -4,6 +4,12 @@ For tensors on the card each wrapper launches its CUDA kernel or raises;
 for tensors on the CPU, where no kernel exists, it computes its plain
 PyTorch version. There is no other fallback: no capacity check that
 switches path, no flag that turns a kernel off, no ``try`` that gives way.
+The flash forward also takes ``meta`` tensors (a step traced for its
+shapes and FLOPs, never run): there it returns empty outputs of the right
+shapes, computes nothing and launches nothing, and a
+:func:`recording_meta_calls` block lists the call so that its FLOPs can be
+counted from its shapes (``launch/hlo_analysis.py``); on any other device
+it raises.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
 card, so that a run can show that its main path went through the kernels.
@@ -30,6 +36,7 @@ LAUNCHES: dict[str, int] = {"sdca_inner": 0, "topk_filter": 0,
                              "flash_attention_fwd": 0}
 _LAUNCH_LOCK = threading.Lock()
 _RECORDING = threading.local()  # .counts: this thread's launches into a graph
+_META = threading.local()  # .calls: this thread's flash forwards on meta tensors
 
 
 def reset_launch_counts() -> None:
@@ -65,6 +72,20 @@ def recording_launches():
         yield counts
     finally:
         _RECORDING.counts = prev
+
+
+@contextlib.contextmanager
+def recording_meta_calls():
+    """Yield a list that collects, for each flash forward this thread calls on
+    ``meta`` tensors, its arguments: ``q_shape`` (B, S, KV, G, hd), ``causal``,
+    ``window``, ``softcap``, ``exploit_window``."""
+    prev = getattr(_META, "calls", None)
+    calls: list[dict] = []
+    _META.calls = calls
+    try:
+        yield calls
+    finally:
+        _META.calls = prev
 
 
 def topk_filter(dw: torch.Tensor, k: int):
@@ -112,22 +133,43 @@ def sdca_epoch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: float | None = None,
-                        window: int | None = None, return_lse: bool = False):
+                        window: int | None = None, return_lse: bool = False,
+                        softcap: float | None = None, exploit_window: bool = True):
     """GQA attention forward: q (B, S, KV, G, hd), k/v (B, S, KV, hd) -> q's shape.
 
     q is scaled by ``sm_scale`` (default ``hd ** -0.5``) inside, as on the
-    TPU; a caller holding pre-scaled q passes ``sm_scale=1.0``. ``window``
-    limits query i to keys j with ``i - j < window`` (the JAX package's
-    windowed ``flash_attention``; its Pallas kernel has no window). With
-    ``return_lse`` it returns ``(out, lse)``, lse the float32 log-sum-exp of
-    each query row's scaled scores, (B, KV, G, S). On the card this is one
-    launch of ``csrc/flash_attn.cu``; on the CPU it is
-    ``ref.flash_attention_fwd_ref``.
+    TPU; a caller holding pre-scaled q passes ``sm_scale=1.0``. ``softcap``
+    maps each scaled score s to ``softcap * tanh(s / softcap)`` before the
+    mask (the JAX package's ``_scores``). ``window`` limits query i to keys
+    j with ``i - j < window`` (the JAX package's windowed
+    ``flash_attention``; its Pallas kernel has no window). ``exploit_window``
+    False (the JAX package's baseline of that name) computes the same
+    function over every key up to the diagonal: on the card a launch that
+    loads the tiles below the window too, bit for bit the windowed launch's
+    result; the plain version always masks every key, so on the CPU the
+    flag changes nothing. With ``return_lse`` it returns ``(out, lse)``, lse
+    the float32 log-sum-exp of each query row's scaled (capped) scores, (B,
+    KV, G, S). On the card this is one launch of ``csrc/flash_attn.cu``; on
+    the CPU it is ``ref.flash_attention_fwd_ref``; on ``meta`` it returns
+    empty outputs (see the module docstring).
     """
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window, return_lse=return_lse,
+              softcap=softcap, exploit_window=exploit_window)
     if q.is_cuda:
-        out = flash_attention_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
-                                       window=window, return_lse=return_lse)
+        out = flash_attention_fwd_cuda(q, k, v, **kw)
         _count("flash_attention_fwd")
         return out
-    return ref.flash_attention_fwd_ref(q, k, v, causal=causal, sm_scale=sm_scale,
-                                       window=window, return_lse=return_lse)
+    if q.is_meta:
+        calls = getattr(_META, "calls", None)
+        if calls is not None:
+            calls.append(dict(q_shape=tuple(q.shape), causal=causal, window=window,
+                              softcap=softcap, exploit_window=exploit_window))
+        out = torch.empty_like(q)
+        if not return_lse:
+            return out
+        B, S, KV, G, _ = q.shape
+        return out, torch.empty((B, KV, G, S), dtype=torch.float32, device=q.device)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention_fwd: no kernel and no plain version on {q.device}; "
+                         "q must lie on a CUDA device, the CPU or meta")
+    return ref.flash_attention_fwd_ref(q, k, v, **kw)

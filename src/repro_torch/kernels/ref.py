@@ -49,22 +49,31 @@ def sdca_inner_ref(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
 
 def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             causal: bool, sm_scale: float | None = None,
-                            window: int | None = None, return_lse: bool = False):
+                            window: int | None = None, return_lse: bool = False,
+                            softcap: float | None = None, exploit_window: bool = True):
     """GQA attention forward, computed in float32, cast to ``q.dtype``.
 
     ``q (B, S, KV, G, hd)``, ``k``/``v (B, S, KV, hd)``; ``q`` is scaled by
     ``sm_scale`` (default ``hd ** -0.5``) here, so pass it unscaled, or
-    pre-scaled with ``sm_scale=1.0``. Query position ``i`` attends to key
-    ``j`` if ``j < S``, ``j <= i`` when ``causal``, and ``i - j < window``
-    when a window is set: the mask of the JAX package's ``FlashSpec``
-    (``repro.models.flash._mask``), one-sided also when not causal. Masked
-    scores are ``NEG_INF``. With ``return_lse`` also the float32
-    ``torch.logsumexp`` of each row's masked, scaled scores, (B, KV, G, S).
+    pre-scaled with ``sm_scale=1.0``. With a ``softcap`` each scaled float32
+    score s becomes ``softcap * tanh(s / softcap)`` before the mask, the
+    order of the JAX package's ``_scores`` (``repro.models.flash``). Query
+    position ``i`` attends to key ``j`` if ``j < S``, ``j <= i`` when
+    ``causal``, and ``i - j < window`` when a window is set: the mask of the
+    JAX package's ``FlashSpec`` (``repro.models.flash._mask``), one-sided
+    also when not causal. Masked scores are ``NEG_INF``. With ``return_lse``
+    also the float32 ``torch.logsumexp`` of each row's masked, scaled (and
+    capped) scores, (B, KV, G, S). ``exploit_window`` is taken for the
+    kernel wrapper's signature and changes nothing: this version masks
+    every key either way, which is the function both of the kernel's
+    launches compute.
     """
     B, S, KV, G, hd = q.shape
     scale = hd**-0.5 if sm_scale is None else sm_scale
     qf = q.float() * scale
     s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float())  # (B, KV, G, S, S)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     qpos = torch.arange(S, device=q.device)[:, None]
     kpos = torch.arange(S, device=q.device)[None, :]
     mask = kpos < S

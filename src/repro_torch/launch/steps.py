@@ -19,13 +19,17 @@ layer runs the flash kernel: with the exchange, once per layer in the
 monitored forward and, under ``remat``, twice per layer for each group
 (forward and recompute), (1 + 2K) x layers launches a step.
 
+``TrainSetup.exploit_window`` is the JAX package's option of that name:
+False runs the windowed layers as its baseline (``models.attention``), the
+same loss and gradients at more work.
+
 The mesh is not ported (ROADMAP A7): sequence sharding, ZeRO-1 and FSDP
-have nothing to shard over on one card, and asking for them raises. The JAX
-package's ``profile``, ``exploit_window`` and ``sequential_exchange``
-options have no counterpart: the rule tables need the mesh, windowed layers
-always take their window (``attend_blocked`` is not ported), and the step
-always takes the sequential exchange (K stacked
-gradients would not fit beside the residuals at full width).
+have nothing to shard over on one card, and asking for them raises
+(``launch/mesh.py`` ports only the mesh's shape arithmetic). The JAX
+package's ``profile`` and ``sequential_exchange`` options have no
+counterpart: the rule tables need the mesh, and the step always takes the
+sequential exchange (K stacked gradients would not fit beside the
+residuals at full width).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ class TrainSetup:
     optimizer: OptimizerConfig
     exchange: exch_lib.ExchangeConfig | None  # None -> plain mean-grad DP
     remat: bool = True
+    exploit_window: bool = True
     seq_shard: bool = False  # the JAX package's mesh options: False on one card
     zero1: bool = False
     fsdp: bool = False
@@ -79,7 +84,8 @@ def build_train_step(setup: TrainSetup, device: str | torch.device | None = None
     cfg, exch = setup.cfg, setup.exchange
 
     def loss_fn(params, batch):
-        return train_loss(params, batch, cfg, remat=setup.remat)
+        return train_loss(params, batch, cfg, remat=setup.remat,
+                          exploit_window=setup.exploit_window)
 
     def grad_fn(params, batch):
         return value_and_grad(loss_fn, params, batch)[1]

@@ -1,17 +1,23 @@
 """GQA attention: flash-kernel prefill and training, and decode over a KV cache.
 
 PyTorch counterpart of ``repro.models.attention`` for layers with full or
-sliding-window attention and no logit softcap. Without a cache (prefill and
-training) every layer goes through ``models.flash.flash_attention``, whose
-forward is ``kernels.ops.flash_attention_fwd`` (on the card, the
-hand-written kernel ``csrc/flash_attn.cu``, with the layer's window) and
-whose backward is FlashAttention-2's recomputation; decode attends one
+sliding-window attention, with or without a logit softcap. Without a cache
+(prefill and training) every layer goes through
+``models.flash.flash_attention``, whose forward is
+``kernels.ops.flash_attention_fwd`` (on the card, the hand-written kernel
+``csrc/flash_attn.cu``, with the layer's window and the config's softcap)
+and whose backward is FlashAttention-2's recomputation; decode attends one
 query over the cache in plain PyTorch, as the JAX package does, over a
-linear buffer (with the window's mask) or a ring of the window's last keys.
-A config with a softcap raises ``NotImplementedError`` on every device
-(ROADMAP A7). The JAX package's ``exploit_window=False`` baseline
-(``attend_blocked`` over every key) is not ported (ROADMAP A7): a windowed
-layer always takes its window.
+linear buffer (with the window's mask) or a ring of the window's last keys,
+capping its scores as the JAX package's ``attend_cache`` does.
+
+``exploit_window=False`` is the JAX package's §Perf baseline, which there
+runs ``attend_blocked`` over every key with the window as a mask only.
+Here it stays on the flash kernel (a CUDA tensor takes no plain path): its
+full-range launch loads every tile up to the diagonal and masks, giving
+the windowed launch's result bit for bit; the backward visits every
+kv-block. Layers without a window, or with one at least S long, are
+unchanged by it, as in JAX.
 
 Scaling: ``_project_qkv`` pre-scales q by ``hd ** -0.5`` in the compute
 dtype, as the JAX package does, and ``attention`` hands that q to the kernel
@@ -45,13 +51,6 @@ def attention_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run: the logit softcap."""
-    if cfg.attn_logit_softcap is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: attention logit softcap is not ported yet (ROADMAP A7)")
-
-
 def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor):
     """x (B,S,D) -> q (B,S,KV,G,hd) pre-scaled, k, v (B,S,KV,hd); RoPE'd + normed."""
@@ -77,7 +76,8 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
 def attend_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                  cfg: ModelConfig, *, cache_len: int, window: int | None = None) -> torch.Tensor:
     """Single-token decode attention over the first ``cache_len`` cache slots,
-    and with a window only over the last ``window`` of them.
+    and with a window only over the last ``window`` of them; float32 scores,
+    capped by the config's softcap before the mask.
 
     q (B, 1, KV, G, hd) pre-scaled; caches (B, S_max, KV, hd). Returns
     (B, 1, KV, G, hd).
@@ -88,6 +88,9 @@ def attend_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if window is not None:
         mask = mask & (kpos >= cache_len - window)
     scores = torch.einsum("bqkgh,bskh->bkgqs", q, k_cache).float()
+    cap = cfg.attn_logit_softcap
+    if cap is not None:
+        scores = cap * torch.tanh(scores / cap)
     scores = scores.masked_fill(~mask, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskh->bkgqh", p.to(q.dtype), v_cache)
@@ -98,12 +101,13 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, window: int | None,
               cache: tuple[torch.Tensor, torch.Tensor] | None = None,
               cache_len: int | None = None, slot: int | None = None,
-              return_kv: bool = False):
+              exploit_window: bool = True, return_kv: bool = False):
     """Attention layer, over a window of the last ``window`` keys if it is
     set. Returns (out (B,S,D), cache or None).
 
     Prefill and training (``cache=None``) go through the flash kernel (the
-    backward's blocks are 512 by 512, the JAX package's defaults);
+    backward's blocks are 512 by 512, the JAX package's defaults), with
+    ``exploit_window`` passed to it (see the module docstring);
     ``return_kv=True`` also returns the projected (k, v) for the caller to
     assemble caches.
     Decode (``cache=(k_cache, v_cache)``, S == 1) writes the new token's k, v
@@ -113,7 +117,6 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     ring buffer passes its slot, its filled length and no window
     (``blocks._attn_decode``).
     """
-    check_supported(cfg)
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     if positions.dim() == 1:
@@ -123,7 +126,7 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     new_cache = None
     if cache is None:
         spec = FlashSpec(causal=cfg.causal, window=window, block_q=512, block_k=512,
-                         softcap=cfg.attn_logit_softcap)
+                         softcap=cfg.attn_logit_softcap, exploit_window=exploit_window)
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), spec)
         if return_kv:
             new_cache = (k, v)

@@ -61,17 +61,21 @@ def block_spec(cfg: ModelConfig, layer: LayerSpec) -> dict:
 
 def block_apply(params: dict, layer: LayerSpec, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, cache: Any = None,
-                cache_len: int | None = None, prefill: bool = False):
+                cache_len: int | None = None, exploit_window: bool = True,
+                prefill: bool = False):
     """Returns (x, new_cache, aux) with ``aux`` the float32 MoE load-balance
     term, or None for a layer without MoE. ``prefill=True`` returns the raw
     cache of the whole sequence (attention: its (k, v); SSD: its
-    :class:`SsmCache`) for the caller to assemble."""
+    :class:`SsmCache`) for the caller to assemble. ``exploit_window`` goes
+    to the attention layer without a cache (``attention.attention``)."""
     aux = None
     h = rmsnorm(params["norm1"], x, cfg.rmsnorm_eps)
     if layer.kind == "attn":
         if cache is None:
             out, new_cache = attn_lib.attention(params["attn"], h, cfg, positions=positions,
-                                                window=layer.window, return_kv=prefill)
+                                                window=layer.window,
+                                                exploit_window=exploit_window,
+                                                return_kv=prefill)
         else:
             out, new_cache = _attn_decode(params["attn"], h, cfg, layer, cache, cache_len,
                                           positions)
@@ -113,7 +117,6 @@ def init_layer_cache(cfg: ModelConfig, layer: LayerSpec, batch: int, max_seq: in
                      dtype: torch.dtype, device: torch.device) -> AttnCache | SsmCache:
     if layer.kind == "mamba":
         return ssm_lib.ssm_init_cache(cfg, batch, dtype, device)
-    attn_lib.check_supported(cfg)
     # A ring of `window` slots where the window is shorter than the context.
     s_buf = layer.window if layer.window is not None and layer.window < max_seq else max_seq
     shape = (batch, s_buf, cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -140,10 +143,12 @@ def _stack(raws: list) -> Any:
 
 
 def _period_forward(p_params: dict, layout: tuple[LayerSpec, ...], x: torch.Tensor,
-                    aux: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+                    aux: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                    exploit_window: bool):
     """One period of the stack without caches (training): (x, aux)."""
     for i, layer in enumerate(layout):
-        x, _, a = block_apply(p_params[f"pos{i}"], layer, x, cfg, positions=positions)
+        x, _, a = block_apply(p_params[f"pos{i}"], layer, x, cfg, positions=positions,
+                              exploit_window=exploit_window)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -151,7 +156,8 @@ def _period_forward(p_params: dict, layout: tuple[LayerSpec, ...], x: torch.Tens
 
 def stage_apply(params: dict, layout: tuple[LayerSpec, ...], x: torch.Tensor,
                 cfg: ModelConfig, *, positions: torch.Tensor, caches: dict | None = None,
-                cache_len: int | None = None, prefill: bool = False, remat: bool = False):
+                cache_len: int | None = None, prefill: bool = False, remat: bool = False,
+                exploit_window: bool = True):
     """Run the stage's periods in order. Returns (x, new_caches, aux_sum).
 
     Prefill returns each layer's raw cache stacked over periods; decode
@@ -168,13 +174,14 @@ def stage_apply(params: dict, layout: tuple[LayerSpec, ...], x: torch.Tensor,
         p_params = _period(params, p)
         if remat and torch.is_grad_enabled():
             x, aux = checkpoint(_period_forward, p_params, layout, x, aux, cfg, positions,
-                                use_reentrant=False)
+                                exploit_window, use_reentrant=False)
             continue
         for i, layer in enumerate(layout):
             key = f"pos{i}"
             c = None if caches is None else _period(caches[key], p)
             x, nc, a = block_apply(p_params[key], layer, x, cfg, positions=positions,
-                                   cache=c, cache_len=cache_len, prefill=prefill)
+                                   cache=c, cache_len=cache_len,
+                                   exploit_window=exploit_window, prefill=prefill)
             if a is not None:
                 aux = aux + a
             if prefill:

@@ -31,9 +31,18 @@ making its result depend on ``block_q`` (ROADMAP C8); the port takes every
 key after the window's lower edge, with the mask, like JAX's
 ``attend_blocked(..., exploit_window=False)``.
 
+Softcap: the forward is the kernel with its cap (each score s becomes
+``softcap * tanh(s / softcap)`` before the mask); the backward rebuilds the
+capped scores, takes ``p = exp(s_capped - lse)`` and carries ``ds`` back
+through the cap, ``ds * (1 - (s_capped / softcap)^2)``, as the JAX
+package's ``_dscores`` does.
+
+``FlashSpec.exploit_window`` False is the JAX package's baseline of that
+name: the forward is the kernel's full-range launch (every tile up to the
+diagonal loaded, the window left to the mask) and the backward visits
+every kv-block from the first, masking; the result is the same function.
+
 GQA layout throughout: q (B, S, KV, G, hd) pre-scaled; k, v (B, S, KV, hd).
-A logit softcap raises ``NotImplementedError`` (ROADMAP A7), as
-``models.attention.check_supported`` does.
 """
 
 from __future__ import annotations
@@ -53,12 +62,7 @@ class FlashSpec(NamedTuple):
     block_q: int
     block_k: int
     softcap: float | None
-
-
-def _check(spec: FlashSpec) -> None:
-    if spec.softcap is not None:
-        raise NotImplementedError("flash attention with a logit softcap is not ported "
-                                  "yet (ROADMAP A7)")
+    exploit_window: bool = True  # False: every key block from the first, masked
 
 
 def _pad_seq(x: torch.Tensor, length: int, value: float = 0.0) -> torch.Tensor:
@@ -74,16 +78,15 @@ def flash_backward(q, k, v, out, lse, dout, spec: FlashSpec):
     """(dq, dk, dv) of the attention at (q, k, v) for the cotangent ``dout``.
 
     ``out`` and ``lse`` (B, KV, G, S) are the forward's; the port of the JAX
-    package's ``_bwd_impl`` without the softcap. Blocks wholly above the
-    diagonal or wholly below a q-block's window are skipped: their
+    package's ``_bwd_impl``. Blocks wholly above the diagonal or (with
+    ``exploit_window``) wholly below a q-block's window are skipped: their
     probabilities are exactly 0, so the sums are unchanged.
     """
-    _check(spec)
     B, S, KV, G, hd = q.shape
     bq, bk = min(spec.block_q, S), min(spec.block_k, S)
     nq, nk = -(-S // bq), -(-S // bk)
     Sq, Lk = nq * bq, nk * bk
-    window = spec.window
+    window, cap = spec.window, spec.softcap
     qp = _pad_seq(q, Sq)
     doutp = _pad_seq(dout, Sq).float()
     outp = _pad_seq(out, Sq).float()
@@ -103,7 +106,8 @@ def flash_backward(q, k, v, out, lse, dout, spec: FlashSpec):
         qpos = torch.arange(qi * bq, (qi + 1) * bq, device=q.device)
         dq_acc = torch.zeros((B, KV, G, bq, hd), dtype=torch.float32, device=q.device)
         last = nk if not spec.causal else min(nk, ((qi + 1) * bq - 1) // bk + 1)
-        first = 0 if window is None else max(0, qi * bq - window + 1) // bk
+        first = (0 if window is None or not spec.exploit_window
+                 else max(0, qi * bq - window + 1) // bk)
         for j in range(first, last):
             cols = slice(j * bk, (j + 1) * bk)
             kb = k_src[:, cols].permute(0, 2, 1, 3)  # (B, KV, bk, hd)
@@ -115,10 +119,14 @@ def flash_backward(q, k, v, out, lse, dout, spec: FlashSpec):
             if window is not None:
                 msk = msk & (qpos[:, None] - kpos[None, :] < window)
             s = torch.einsum("bkgqh,bkch->bkgqc", qbf, kb.float())
-            s = torch.where(msk, s, NEG_INF)
-            p = torch.exp(s - lseb[..., None])  # (B, KV, G, bq, bk)
+            if cap is not None:
+                s = cap * torch.tanh(s / cap)
+            p = torch.exp(torch.where(msk, s, NEG_INF) - lseb[..., None])  # (B, KV, G, bq, bk)
             dp = torch.einsum("bkgqh,bkch->bkgqc", dob, vbf)
-            ds = torch.where(msk, p * (dp - dlt[..., None]), 0.0)
+            ds = p * (dp - dlt[..., None])
+            if cap is not None:  # through s_capped = cap * tanh(s / cap)
+                ds = ds * (1.0 - torch.square(s / cap))
+            ds = torch.where(msk, ds, 0.0)
             dq_acc += torch.einsum("bkgqc,bkch->bkgqh", ds, kb.float())
             dk[:, cols] += torch.einsum("bkgqc,bkgqh->bkch", ds, qbf).transpose(1, 2)
             dv[:, cols] += torch.einsum("bkgqc,bkgqh->bkch", p, dob).transpose(1, 2)
@@ -126,11 +134,15 @@ def flash_backward(q, k, v, out, lse, dout, spec: FlashSpec):
     return dq[:, :S].to(q.dtype), dk[:, :S].to(k.dtype), dv[:, :S].to(v.dtype)
 
 
+def _kernel_args(spec: FlashSpec) -> dict:
+    return dict(causal=spec.causal, sm_scale=1.0, window=spec.window, softcap=spec.softcap,
+                exploit_window=spec.exploit_window)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, spec: FlashSpec):
-        out, lse = ops.flash_attention_fwd(q, k, v, causal=spec.causal, sm_scale=1.0,
-                                           window=spec.window, return_lse=True)
+        out, lse = ops.flash_attention_fwd(q, k, v, return_lse=True, **_kernel_args(spec))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.spec = spec
         return out
@@ -148,8 +160,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Differentiable in q, k and v. Inputs must be contiguous (the kernel's rule).
     """
-    _check(spec)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, spec)
-    return ops.flash_attention_fwd(q, k, v, causal=spec.causal, sm_scale=1.0,
-                                   window=spec.window)
+    return ops.flash_attention_fwd(q, k, v, **_kernel_args(spec))

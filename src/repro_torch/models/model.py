@@ -65,7 +65,7 @@ def _input_embeds(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _forward_hidden(params, x, cfg, *, positions, caches=None, cache_len=None,
-                    prefill=False, remat=False):
+                    remat=False, exploit_window=True, prefill=False):
     """(final-normed hidden states, caches per stage, summed float32 aux)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
@@ -73,24 +73,27 @@ def _forward_hidden(params, x, cfg, *, positions, caches=None, cache_len=None,
         c = None if caches is None else caches[si]
         x, nc, aux = blocks.stage_apply(params[f"stage{si}"], layout, x, cfg,
                                         positions=positions, caches=c, cache_len=cache_len,
-                                        prefill=prefill, remat=remat)
+                                        prefill=prefill, remat=remat,
+                                        exploit_window=exploit_window)
         new_caches.append(nc)
         aux_total = aux_total + aux
     return rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps), new_caches, aux_total
 
 
 def train_loss(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = True,
-               aux_weight: float = 0.01) -> torch.Tensor:
+               exploit_window: bool = True, aux_weight: float = 0.01) -> torch.Tensor:
     """Scalar float32 training loss of ``batch`` (``labels`` (B, S) and the
     frontend's inputs: ``tokens``, ``patch_embeds`` before them, or
     ``frame_embeds``): the mean next-token NLL (for the VLM over the text
     positions only) plus ``aux_weight`` times the MoE load-balance terms
     summed over the layers, as in the JAX package (the sum is 0 without MoE
-    layers)."""
+    layers). ``exploit_window=False`` runs the windowed layers as the JAX
+    package's baseline of that name (``models.attention``): the same loss."""
     x = _input_embeds(params, batch, cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device, dtype=torch.int32)[None, :]
-    h, _, aux = _forward_hidden(params, x, cfg, positions=positions, remat=remat)
+    h, _, aux = _forward_hidden(params, x, cfg, positions=positions, remat=remat,
+                                exploit_window=exploit_window)
     if cfg.frontend == "vision_stub":  # the loss after the patch prefix
         h = h[:, batch["patch_embeds"].shape[1]:]
     nll = chunked_cross_entropy(params["lm_head"], h, batch["labels"], cfg)
@@ -127,17 +130,21 @@ def _assemble_cache(raw, layer: LayerSpec, S: int, max_seq: int):
 
 
 @torch.no_grad()
-def prefill(params: dict, batch: dict, cfg: ModelConfig, *, max_seq: int):
+def prefill(params: dict, batch: dict, cfg: ModelConfig, *, max_seq: int,
+            exploit_window: bool = True):
     """Run the prompt; return (last-position logits (B, V) float32, caches, S).
 
     ``batch`` holds the frontend's inputs (``tokens``; ``patch_embeds`` and
     ``tokens``; ``frame_embeds``); S counts every position of the stream, a
     VLM's patches too, and ``max_seq`` must hold S plus the steps to come.
+    ``exploit_window=False`` is the JAX package's windowed baseline
+    (``models.attention``): the same logits and caches.
     """
     x = _input_embeds(params, batch, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device, dtype=torch.int32)[None, :]
-    h, raw_caches, _ = _forward_hidden(params, x, cfg, positions=positions, prefill=True)
+    h, raw_caches, _ = _forward_hidden(params, x, cfg, positions=positions, prefill=True,
+                                       exploit_window=exploit_window)
     caches = [{f"pos{i}": _assemble_cache(stage[f"pos{i}"], layer, S, max_seq)
                for i, layer in enumerate(layout)}
               for (layout, _), stage in zip(cfg.stages(), raw_caches)]

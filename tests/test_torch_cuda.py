@@ -17,7 +17,9 @@ equal exactly; the flash kernel sums its float32 products in tiles where the
 plain version sums whole rows, so rtol 1e-5 / atol 2e-5 in float32 (the
 CUDA-core kernel), and in bfloat16 (the tensor-core kernel, which rounds P
 to bfloat16 before P V) atol 3e-2; its log-sum-exp rtol 1e-5 with atol
-2e-5 in float32 and 1e-4 in bfloat16, with and without a window.
+2e-5 in float32 and 1e-4 in bfloat16, with and without a window or a
+softcap. The full-range launch (``exploit_window=False``) equals the
+windowed launch bit for bit.
 """
 
 import numpy as np
@@ -628,6 +630,95 @@ def test_flash_kernel_head_dim_80(cuda, G, S, causal, dtype):
     _close(out, want, dtype)
     _close(lse, want_lse, dtype, lse=True)
     assert torch.equal(out, ops.flash_attention_fwd(q, k, v, causal=causal))
+
+
+# (B, S, KV, G, hd, window, causal): the softcap with and without a window,
+# causal and not, every kernel's head dims 64, 128, 80 and 16, ragged S.
+SOFTCAP_CASES = [(1, 333, 2, 5, 64, None, True), (2, 257, 2, 2, 128, None, False),
+                 (1, 1000, 2, 2, 128, 200, True), (1, 300, 2, 1, 80, None, False),
+                 (2, 129, 1, 3, 16, 37, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cap", [50.0, 5.0])
+@pytest.mark.parametrize("B,S,KV,G,hd,W,causal", SOFTCAP_CASES)
+def test_flash_kernel_softcap_matches_plain(cuda, B, S, KV, G, hd, W, causal, cap, dtype):
+    """The capped instantiation of both kernels (tanhf on each scaled score
+    before the mask) against the plain version: output and lse, one launch,
+    a bitwise repeat. ``sm_scale`` 3 spreads the scores to about +-20, so a
+    cap of 5 saturates and one of 50 (gemma-2's) bends the largest."""
+    q, k, v = _flash_inputs(B, S, KV, G, hd, cuda, dtype)
+    kw = dict(causal=causal, window=W, sm_scale=3.0, softcap=cap)
+    before = ops.LAUNCHES["flash_attention_fwd"]
+    out, lse = ops.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    assert ops.LAUNCHES["flash_attention_fwd"] == before + 1
+    want, want_lse = ref.flash_attention_fwd_ref(q, k, v, return_lse=True, **kw)
+    _close(out, want, dtype)
+    _close(lse, want_lse, dtype, lse=True)
+    assert torch.equal(out, ops.flash_attention_fwd(q, k, v, **kw))
+    if cap == 5.0:  # saturated: far from the capless result
+        capless = ref.flash_attention_fwd_ref(q, k, v, causal=causal, window=W, sm_scale=3.0)
+        assert not torch.allclose(out.float(), capless.float(), atol=3e-2)
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,KV,G,hd,W", WINDOW_SHAPES)
+def test_flash_kernel_full_range_equals_the_windowed_launch(cuda, B, S, KV, G, hd, W,
+                                                            causal, dtype, cap):
+    """``exploit_window=False``: one launch that loads every tile up to the
+    diagonal (the tiles below a row's window add ones that the first real
+    key's zero correction wipes), output and lse bit for bit the windowed
+    launch's, and within tolerance of the plain version."""
+    q, k, v = _flash_inputs(B, S, KV, G, hd, cuda, dtype)
+    kw = dict(causal=causal, window=W, softcap=cap, return_lse=True)
+    before = ops.LAUNCHES["flash_attention_fwd"]
+    out, lse = ops.flash_attention_fwd(q, k, v, exploit_window=False, **kw)
+    assert ops.LAUNCHES["flash_attention_fwd"] == before + 1
+    win, win_lse = ops.flash_attention_fwd(q, k, v, **kw)
+    assert torch.equal(out, win) and torch.equal(lse, win_lse)
+    want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    _close(out, want, dtype)
+    _close(lse, want_lse, dtype, lse=True)
+
+
+@pytest.mark.parametrize("cap", [None, 50.0])
+def test_gemma3_prefill_and_loss_without_the_window_on_the_card(cuda, cap):
+    """gemma3 ``reduced()`` in float32 (window 64, an 80-token prompt):
+    ``exploit_window=False`` gives the windowed prefill's logits and caches
+    and its training loss bit for bit, on the flash kernel (one launch per
+    layer a prefill); with a softcap the card's prefill and decode step are
+    within 1e-4 of the host's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.models.param import tree_map, tree_materialize
+
+    cfg = dataclasses.replace(get_config("gemma3-27b").reduced(), attn_logit_softcap=cap)
+    host = tree_materialize(model.model_spec(cfg), torch.Generator().manual_seed(2), "cpu")
+    params = tree_map(lambda t: t.to(cuda), host)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 81))).to(cuda)
+    batch = {"tokens": toks[:, :80]}
+    before = ops.LAUNCHES["flash_attention_fwd"]
+    lw, cw, _ = model.prefill(params, batch, cfg, max_seq=84)
+    lf, cf, _ = model.prefill(params, batch, cfg, max_seq=84, exploit_window=False)
+    assert ops.LAUNCHES["flash_attention_fwd"] == before + 2 * cfg.num_layers
+    assert torch.equal(lw, lf)
+    for stage_w, stage_f in zip(cw, cf):
+        for key in stage_w:
+            assert all(torch.equal(a, b) for a, b in zip(stage_w[key], stage_f[key]))
+    lbatch = {"tokens": toks[:, :80], "labels": toks[:, 1:]}
+    assert torch.equal(model.train_loss(params, lbatch, cfg, remat=False),
+                       model.train_loss(params, lbatch, cfg, remat=False,
+                                        exploit_window=False))
+    lh, ch, plen = model.prefill(host, {"tokens": toks[:, :80].cpu()}, cfg, max_seq=84)
+    torch.testing.assert_close(lw.cpu(), lh, rtol=1e-4, atol=1e-4)
+    dw, _ = model.decode_step(params, toks[:, 80], cw, plen + 1, cfg)
+    dh, _ = model.decode_step(host, toks[:, 80].cpu(), ch, plen + 1, cfg)
+    torch.testing.assert_close(dw.cpu(), dh, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["gemma3-27b", "pixtral-12b"])

@@ -216,3 +216,125 @@ def test_launcher_takes_head_dim_80_and_refuses_a_bad_window():
         flash_attn.flash_attention_fwd_cuda(q, k, v, window=8)
     with pytest.raises(ValueError, match="window"):
         flash_attn._check(q, k, v, 0)
+
+
+# ---------------------------------------------------------------------------
+# The logit softcap and the exploit_window=False baseline.
+# ---------------------------------------------------------------------------
+
+# (S, window, causal): a padded S (100 at blocks of 16) and a ragged one (33),
+# with and without a window, causal and not.
+SOFTCAP_CASES = [(S, W, c) for S in (100, 33) for W in (None, 21) for c in (True, False)]
+
+
+def _capped_inputs(S, seed):
+    """q, k with scores of about +-30 after the model's pre-scaling (a cap of
+    30 saturates the largest, one of 50 bends them), v standard normal."""
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((2, S, 2, 2, 16)) * 3.0 * 16**-0.5).astype(np.float32)
+    k = (rng.standard_normal((2, S, 2, 16)) * 3.0).astype(np.float32)
+    v = rng.standard_normal((2, S, 2, 16)).astype(np.float32)
+    return q, k, v
+
+
+def _jax_capped(q, k, v, causal, window, cap, block):
+    """JAX's capped attention: its custom-VJP flash where its blocked slice
+    holds every key the mask keeps (causal, or no window), else the blocked
+    path over every key (ROADMAP C8)."""
+    if causal or window is None:
+        return jflash.flash_attention(q, k, v, jflash.FlashSpec(causal, window, block, block,
+                                                                cap))
+    cfg = dataclasses.replace(_CFG, attn_logit_softcap=cap)
+    return jattn.attend_blocked(q, k, v, cfg, causal=False, window=window, block_q=block,
+                                block_k=block, exploit_window=False)
+
+
+@pytest.mark.parametrize("cap", [50.0, 30.0])
+@pytest.mark.parametrize("S,W,causal", SOFTCAP_CASES)
+def test_softcap_forward_lse_and_gradients_match_jax(S, W, causal, cap):
+    """The cap on the scaled float32 scores before the mask, as JAX's
+    ``_scores``: the port's forward (the plain version on the CPU), its lse
+    (against JAX's ``_fwd_impl`` where one query block spans S) and its
+    FlashAttention-2 backward through the cap (JAX's ``_dscores``) against
+    ``jax.grad``; rtol / atol 1e-5, the gradients' atol 1e-5 of the leaf's
+    largest entry (scores up to ~50 give gradients up to ~30, and float32
+    rounding scales with them: the entries that true arithmetic makes 0,
+    a first row's dq, differ by ~1e-5 of that)."""
+    q, k, v = _capped_inputs(S, S + int(cap))
+    cot = np.random.default_rng(S).standard_normal(q.shape).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = _jax_capped(jq, jk, jv, causal, W, cap, 16)
+    jgrads = jax.grad(lambda *a: jnp.sum(_jax_capped(*a, causal, W, cap, 16) * cot),
+                      argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    got = tflash.flash_attention(tq, tk, tv, tflash.FlashSpec(causal, W, 16, 16, cap))
+    (got * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    for name, t, jg in zip("qkv", (tq, tk, tv), jgrads):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(t.grad.numpy(), jg, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(jg).max()), err_msg=f"d{name}")
+    _, lse = ops.flash_attention_fwd(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+                                     sm_scale=1.0, window=W, softcap=cap, return_lse=True)
+    _, jlse = jflash._fwd_impl(jq, jk, jv, jflash.FlashSpec(causal, W, 128, 1, cap))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=1e-5, atol=1e-5)
+    capless = tflash.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                     tflash.FlashSpec(causal, W, 16, 16, None))
+    assert not torch.allclose(got.detach(), capless, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_baseline_without_the_window_is_the_same_function(causal):
+    """``exploit_window=False`` (the backward from the first kv-block, the
+    kernel's full-range launch on the card) gives the windowed result and
+    gradients, and JAX's ``attend_blocked(..., exploit_window=False)``
+    within 1e-5, not causal too (where JAX's windowed flash drops keys, C8)."""
+    q, k, v = _inputs(1, 100, 2, 2, 16, 13)
+    q = q * np.float32(16**-0.5)
+    cot = np.random.default_rng(13).standard_normal(q.shape).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+
+    def jref(*a):
+        return jattn.attend_blocked(*a, _CFG, causal=causal, window=37, block_q=16,
+                                    block_k=16, exploit_window=False)
+
+    want = jref(jq, jk, jv)
+    jgrads = jax.grad(lambda *a: jnp.sum(jref(*a) * cot), argnums=(0, 1, 2))(jq, jk, jv)
+    outs = {}
+    for exploit in (True, False):
+        tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+        spec = tflash.FlashSpec(causal, 37, 16, 16, None, exploit_window=exploit)
+        got = tflash.flash_attention(tq, tk, tv, spec)
+        (got * torch.from_numpy(cot)).sum().backward()
+        outs[exploit] = [got.detach()] + [t.grad for t in (tq, tk, tv)]
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+        for name, t, jg in zip("qkv", (tq, tk, tv), jgrads):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-5,
+                                       err_msg=f"d{name}")
+    assert torch.equal(outs[True][0], outs[False][0])  # the same plain forward
+    for a, b in zip(outs[True][1:], outs[False][1:]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_meta_tensors_give_shapes_and_record_the_call():
+    """On ``meta`` the forward computes nothing: empty outputs of the right
+    shapes, no launch counted, the call recorded for the FLOP count."""
+    q = torch.empty((2, 40, 2, 3, 16), device="meta")
+    k = v = torch.empty((2, 40, 2, 16), device="meta")
+    before = dict(ops.LAUNCHES)
+    with ops.recording_meta_calls() as calls:
+        out, lse = ops.flash_attention_fwd(q, k, v, window=8, softcap=30.0, return_lse=True,
+                                           exploit_window=False)
+    assert out.shape == q.shape and out.is_meta and lse.shape == (2, 2, 3, 40)
+    assert calls == [dict(q_shape=(2, 40, 2, 3, 16), causal=True, window=8, softcap=30.0,
+                          exploit_window=False)]
+    assert ops.LAUNCHES == before
+    assert ops.flash_attention_fwd(q, k, v).shape == q.shape  # not recorded outside
+
+
+def test_launcher_refuses_a_bad_softcap():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 1, 2, 16, 0))
+    for cap in (0.0, -1.0, float("inf")):
+        with pytest.raises(ValueError, match="softcap"):
+            flash_attn._check(q, k, v, None, cap)

@@ -179,9 +179,10 @@ def test_attention_prefill_and_decode_match_jax(narrow):
 
 
 def test_windows_and_softcaps_raise_on_every_device(narrow):
-    """A window no longer raises: the windowed layer and a windowed decode
-    step over a linear cache equal JAX's. The softcap still raises (ROADMAP
-    A7)."""
+    """Neither a window nor a softcap raises any more: the windowed layer and
+    a windowed decode step over a linear cache equal JAX's, and so do the
+    layer and the decode step (``attend_cache``) with gemma-2's published
+    cap of 50, with and without the window."""
     jcfg, tcfg, jp, tp = narrow
     ja = jax.tree.map(lambda a: a[0], jp["stage0"]["pos0"]["attn"])
     ta = tparam.tree_map(lambda a: a[0], tp["stage0"]["pos0"]["attn"])
@@ -205,9 +206,30 @@ def test_windows_and_softcaps_raise_on_every_device(narrow):
     out_t, _ = tattn.attention(ta, _t(x1), tcfg, positions=_t(pos), window=W,
                                cache=(_t(kc.copy()), _t(vc.copy())), cache_len=S + 1)
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=RTOL, atol=ATOL)
-    capped = dataclasses.replace(tcfg, attn_logit_softcap=50.0)
-    with pytest.raises(NotImplementedError, match="softcap.*ROADMAP A7"):
-        tattn.attention(ta, _t(x[:1, :4]), capped, positions=torch.arange(4), window=None)
+    # The cap at inputs a tenth as large: scores of about +-10 (at the init
+    # rule's weights x's scores reach the hundreds, C3, and the layer's
+    # outputs ~400, where float32 rounding alone passes 1e-4).
+    jcap, tcap = (dataclasses.replace(c, attn_logit_softcap=50.0) for c in (jcfg, tcfg))
+    xs, x1s = x * np.float32(0.1), x1 * np.float32(0.1)
+    for window in (W, None):
+        out_j, (k_j, v_j) = jattn.attention(ja, jnp.asarray(xs), jcap,
+                                            positions=jnp.arange(S), window=window,
+                                            block_q=16, block_k=16, return_kv=True)
+        out_t, _ = tattn.attention(ta, _t(xs), tcap, positions=torch.arange(S), window=window)
+        np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=RTOL, atol=ATOL)
+        uncapped, _ = tattn.attention(ta, _t(xs), tcfg, positions=torch.arange(S),
+                                      window=window)
+        assert not torch.allclose(out_t, uncapped, rtol=RTOL, atol=ATOL)
+        kc, vc = np.pad(np.asarray(k_j), pad), np.pad(np.asarray(v_j), pad)
+        out_j, _ = jattn.attention(ja, jnp.asarray(x1s), jcap, positions=jnp.asarray(pos),
+                                   window=window, cache=(jnp.asarray(kc), jnp.asarray(vc)),
+                                   cache_len=jnp.int32(S + 1))
+        out_t, _ = tattn.attention(ta, _t(x1s), tcap, positions=_t(pos), window=window,
+                                   cache=(_t(kc.copy()), _t(vc.copy())), cache_len=S + 1)
+        np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=RTOL, atol=ATOL)
+        uncapped, _ = tattn.attention(ta, _t(x1s), tcfg, positions=_t(pos), window=window,
+                                      cache=(_t(kc.copy()), _t(vc.copy())), cache_len=S + 1)
+        assert not torch.allclose(out_t, uncapped, rtol=RTOL, atol=ATOL)
 
 
 def test_prefill_and_three_decode_steps_match_jax(narrow):
@@ -502,6 +524,66 @@ def test_gemma3_ring_decode_equals_a_longer_prefill(gemma):
     for i in range(plen, 30):
         logits, caches = tmodel.decode_step(tp, tokens[:, i], caches, i + 1, tcfg)
     np.testing.assert_allclose(logits.numpy(), whole.numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.fixture(scope="module")
+def gemma_reduced():
+    jcfg, tcfg = jget_config("gemma3-27b").reduced(), tget_config("gemma3-27b").reduced()
+    jp = np_params(tcfg, 6, fan_in=True)
+    return jcfg, tcfg, jp, convert.params_from_arrays(jp, tcfg, device="cpu")
+
+
+def test_gemma3_prefill_without_exploiting_the_window_matches_jax(gemma_reduced):
+    """gemma3's ``reduced()`` config (window 64, 12 layers) at an 80-token
+    prompt, past the window: ``exploit_window=False`` (JAX's
+    ``attend_blocked`` over every key; the port's flash over every key
+    block) gives JAX's logits and caches within 1e-4, and the port's
+    windowed prefill's exactly (the plain forward is the same on the CPU)."""
+    jcfg, tcfg, jp, tp = gemma_reduced
+    tokens = np.random.default_rng(8).integers(0, 512, (2, 80)).astype(np.int32)
+    lj, cj, _ = j_prefill(jp, {"tokens": jnp.asarray(tokens)}, jcfg, max_seq=84,
+                          exploit_window=False)
+    lt, ct, _ = tmodel.prefill(tp, {"tokens": _t(tokens).long()}, tcfg, max_seq=84,
+                               exploit_window=False)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=RTOL, atol=ATOL)
+    _assert_caches_close(ct, cj)
+    lw, _, _ = tmodel.prefill(tp, {"tokens": _t(tokens).long()}, tcfg, max_seq=84)
+    assert torch.equal(lt, lw)
+
+
+def test_gemma3_train_loss_without_exploiting_the_window_matches_jax(gemma_reduced):
+    """``train_loss(..., exploit_window=False)`` at gemma3's ``reduced()``
+    config and 80 tokens: the loss within 1e-4 of JAX's (its windowed
+    layers through ``attend_blocked`` under autodiff), a windowed layer's
+    and the global layer's gradient within 1e-4 (atol 1e-5 of the leaf's
+    scale); the loss and gradients within 1e-6 of the port's windowed ones."""
+    jcfg, tcfg, jp, tp = gemma_reduced
+    rng = np.random.default_rng(12)
+    tokens = rng.integers(0, 512, (2, 80)).astype(np.int32)
+    labels = rng.integers(0, 512, (2, 80)).astype(np.int32)
+    jb = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+    jv, jg = jax.jit(jax.value_and_grad(lambda p: jmodel.train_loss(
+        p, jb, jcfg, remat=True, exploit_window=False)))(jp)
+    tb = {"tokens": _t(tokens).long(), "labels": _t(labels).long()}
+    got = {}
+    for exploit in (False, True):
+        leaves = tparam.tree_map(lambda t: t.clone().requires_grad_(True), tp)
+        loss = tmodel.train_loss(leaves, tb, tcfg, remat=True, exploit_window=exploit)
+        loss.backward()
+        got[exploit] = (loss.detach(), leaves)
+    tv, tl = got[False]
+    np.testing.assert_allclose(float(tv), float(jv), rtol=RTOL)
+    paths = (("stage0", "pos0", "attn", "wq"), ("stage0", "pos5", "attn", "wk"),
+             ("embed", "table"))
+    for path in paths:
+        g, w, gw = tl, jg, got[True][1]
+        for k in path:
+            g, w, gw = g[k], w[k], gw[k]
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.grad.numpy(), w, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(w).max()), err_msg=str(path))
+        torch.testing.assert_close(g.grad, gw.grad, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(tv, got[True][0], rtol=1e-6, atol=1e-6)
 
 
 def test_gemma3_train_loss_and_gradients_match_jax(gemma):

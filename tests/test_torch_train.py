@@ -172,8 +172,9 @@ def test_no_gradient_means_no_lse(monkeypatch):
 
 
 def test_windows_and_softcaps_raise_naming_the_roadmap():
-    """A windowed spec now runs, its forward and gradients equal to JAX's
-    custom-VJP windowed flash; the softcap spec still raises (ROADMAP A7)."""
+    """Neither raises any more: a windowed spec and a capped one (cap 1, so
+    that these scores of about +-3 bend) run, their forward and gradients
+    equal to JAX's custom-VJP flash with the same spec."""
     q, k, v, cot = _qkv(3, 1, 8, 1, 1, 16)
     spec = tflash.FlashSpec(True, 4, 8, 8, None)
     jspec = jflash.FlashSpec(True, 4, 8, 8, None)
@@ -187,8 +188,16 @@ def test_windows_and_softcaps_raise_naming_the_roadmap():
     np.testing.assert_allclose(_np(out), np.asarray(want), rtol=1e-5, atol=1e-5)
     for t, jg in zip((tq, tk, tv), jgrads):
         np.testing.assert_allclose(_np(t.grad), np.asarray(jg), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tflash.flash_attention(_t(q), _t(k), _t(v), tflash.FlashSpec(True, None, 8, 8, 30.0))
+    capped = (True, None, 8, 8, 1.0)
+    want = jflash.flash_attention(jq, jk, jv, jflash.FlashSpec(*capped))
+    jgrads = jax.grad(lambda *a: jnp.sum(jflash.flash_attention(*a, jflash.FlashSpec(*capped))
+                                         * cot), argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+    out = tflash.flash_attention(tq, tk, tv, tflash.FlashSpec(*capped))
+    (out * _t(cot)).sum().backward()
+    np.testing.assert_allclose(_np(out), np.asarray(want), rtol=1e-5, atol=1e-5)
+    for t, jg in zip((tq, tk, tv), jgrads):
+        np.testing.assert_allclose(_np(t.grad), np.asarray(jg), rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
