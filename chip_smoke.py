@@ -77,7 +77,17 @@ exploit_window=False (``serve_window_baseline``: the same logits bit for
 bit, its seconds beside the exploiting prefill's); the float32
 prefill-against-decode check runs again with the cap
 (``serve_consistency_window_softcap``), and the training check with the cap
-against autograd through the plain forward (``train_softcap_check``). At the
+against autograd through the plain forward (``train_softcap_check``); the
+capped launches are timed beside compiled ``flex_attention`` with the cap
+as its ``score_mod``, and the S 32,768 full-range launch beside SDPA's
+memory-efficient backend with the window's boolean mask. After the
+``cli`` phase, ``analyze`` runs the port's static analyzer on the card: its
+run contracts at the JAX package's toy sizes and, on the executor's
+captured lockstep and LAG graphs at RCV1 width (which launch
+``sdca_inner``), one capture per run signature, launches linear in the
+round count and no host sync in two replays under sync debug mode
+"error"; then the lint of ``src/repro_torch`` and ``python -m repro_torch
+analyze``. At the
 end ``dryrun`` records every (architecture x input shape) of
 ``repro_torch.launch.dryrun`` on meta tensors and runs once each that fits
 the card, its peak beside the resident estimate. It also checks that
@@ -97,6 +107,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -424,12 +435,60 @@ def flash_tiles(S: int, window: int | None, exploit_window: bool = True) -> int:
     return total
 
 
+def _heads_first(q, k_, v_):
+    """(B, S, KV, G, hd) q and (B, S, KV, hd) k, v as (B, H, S, hd) copies,
+    query head kv * G + g: the layout of PyTorch's attention calls."""
+    B_, S_, KV_, G_, hd_ = q.shape
+    return (q.reshape(B_, S_, KV_ * G_, hd_).transpose(1, 2).contiguous(),
+            k_.transpose(1, 2).contiguous(), v_.transpose(1, 2).contiguous())
+
+
+def _softcap_score(score, b, h, q_idx, kv_idx):
+    return SOFTCAP * torch.tanh(score / SOFTCAP)
+
+
+def flex_capped(q, k_, v_, causal: bool, window: int | None, sm_scale: float,
+                mine: torch.Tensor) -> dict:
+    """The library yardstick of a capped launch (timed only, never used on a
+    path): compiled ``flex_attention`` with ``score_mod`` = cap * tanh(s /
+    cap), the causal flag and the window as a block mask, GQA; its ms and
+    its largest difference from the kernel's output ``mine``."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    S_ = q.shape[1]
+
+    def keep(b, h, q_idx, kv_idx):
+        if causal and window:
+            return (q_idx >= kv_idx) & (q_idx - kv_idx < window)
+        return q_idx >= kv_idx if causal else q_idx - kv_idx < window
+
+    mask = (create_block_mask(keep, None, None, S_, S_, device=q.device)
+            if causal or window else None)
+    qs, ks, vs = _heads_first(q, k_, v_)
+    flex = torch.compile(flex_attention)
+
+    def call():
+        return flex(qs, ks, vs, score_mod=_softcap_score, block_mask=mask, scale=sm_scale,
+                    enable_gqa=True)
+
+    t0 = time.perf_counter()
+    got = call().transpose(1, 2).reshape(q.shape)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    diff = float((got.float() - mine.float()).abs().max())
+    return dict(library_ms=time_ms(call, warmup=2, reps=10), library_max_abs_diff=diff,
+                library_compile_s=compile_s,
+                library="torch.compile(flex_attention)(score_mod=cap*tanh(s/cap), "
+                        "block_mask=causal/window, enable_gqa=True)")
+
+
 def flash_softcap_phase(dev: torch.device, gen: torch.Generator, shapes: dict) -> dict:
     """kernel_flash_attention_softcap: both kernels' capped instantiations
     (cap SOFTCAP, sm_scale CAP_SCALE times the model's) against the plain
     version, with and without the lse, at each of ``shapes`` (label: (shape,
     causal, window)), in both dtypes; bf16 timed beside the capless launch
-    at the same inputs and scale. Tolerances: kernel 3's (float32 rtol 1e-5
+    at the same inputs and scale and beside compiled ``flex_attention``
+    with the cap as its ``score_mod`` (:func:`flex_capped`). Tolerances: kernel 3's (float32 rtol 1e-5
     / atol 1e-5; the lse rtol 1e-5 with atol 2e-5 / 1e-4) and in bf16 atol
     3e-2 plus one bf16 step of the value (rtol 2^-7): at the larger scale a
     row's softmax is nearly one key's, so outputs reach that key's value, up
@@ -480,7 +539,7 @@ def flash_softcap_phase(dev: torch.device, gen: torch.Generator, shapes: dict) -
                                        warmup=2, reps=10),
                     plain_ms=time_ms(lambda: ref.flash_attention_fwd_ref(
                         q, k_, v_, softcap=SOFTCAP, **kw), warmup=1, reps=3),
-                    library_ms=None, library="none: no PyTorch call caps logits",
+                    **flex_capped(q, k_, v_, causal, window, kw["sm_scale"], out),
                     bound_ms=max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3,
                     bound_by="operations" if flops / PEAK_BF16 >= nbytes / PEAK_BYTES
                     else "bytes")
@@ -496,6 +555,38 @@ def flash_softcap_phase(dev: torch.device, gen: torch.Generator, shapes: dict) -
     return dict(max_abs_err=worst, by_shape=rows)
 
 
+def sdpa_window(q, k_, v_, window: int, mine: torch.Tensor) -> dict:
+    """The library yardstick of a causal windowed launch at a length where no
+    score matrix fits (timed only, never used on a path): SDPA's
+    memory-efficient backend with the window as an (S, S) boolean mask (1
+    GiB at S 32,768); its ms and its largest difference from ``mine``. The
+    backend takes no GQA with a mask (torch 2.11: "both fused kernels
+    require query, key and value to have the same num_heads"), so k and v
+    are repeated to the query heads first, outside the timing: the same
+    function."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    S_ = q.shape[1]
+    i = torch.arange(S_, device=q.device)[:, None]
+    j = torch.arange(S_, device=q.device)[None, :]
+    mask = (i - j < window) & (j <= i)
+    qs, ks, vs = _heads_first(q, k_, v_)
+    G_ = q.shape[3]
+    ks, vs = ks.repeat_interleave(G_, dim=1), vs.repeat_interleave(G_, dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def call():
+        return sdpa(qs, ks, vs, attn_mask=mask)
+
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        diff = float((call().transpose(1, 2).reshape(q.shape).float() - mine.float())
+                     .abs().max())
+        ms = time_ms(call, warmup=1, reps=3)
+    return dict(library_ms=ms, library_max_abs_diff=diff,
+                library="scaled_dot_product_attention(attn_mask=window) on "
+                        "SDPBackend.EFFICIENT_ATTENTION, k and v repeated to the query heads")
+
+
 def flash_full_range_phase(dev: torch.device, gen: torch.Generator, shape: dict,
                            window: int) -> dict:
     """kernel_flash_attention_full_range: the full-range launch (the model's
@@ -503,7 +594,8 @@ def flash_full_range_phase(dev: torch.device, gen: torch.Generator, shape: dict,
     (both dtypes) and against the windowed launch bit for bit, output and
     lse; then at B 1, S FULL_RANGE_S the two launches against each other
     only (the plain version would build a (KV G, S, S) float32 score tensor
-    of ~137 GB). bf16 timed both ways beside the tiles each loads."""
+    of ~137 GB). bf16 timed both ways beside the tiles each loads, and at S
+    FULL_RANGE_S beside SDPA with the window's boolean mask."""
     from repro_torch.kernels import ops, ref
 
     tol = {"float32": 1e-5, "bfloat16": 3e-2}
@@ -543,6 +635,8 @@ def flash_full_range_phase(dev: torch.device, gen: torch.Generator, shape: dict,
                     tiles_full_range=tiles[False], tiles_windowed=tiles[True],
                     tile_ratio=tiles[False] / tiles[True])
                 row["time_ratio"] = row["ms_full_range"] / row["ms_windowed"]
+                if S_ == FULL_RANGE_S:
+                    row.update(sdpa_window(q, k_, v_, window, win))
             rows[f"{label}_{name}"] = row
             emit("kernel_flash_attention_full_range", at=label, **row)
             check(row["bitwise_equal_windowed"] and row["lse_bitwise_equal_windowed"],
@@ -552,6 +646,89 @@ def flash_full_range_phase(dev: torch.device, gen: torch.Generator, shape: dict,
             del q, k_, v_, full, win, full_lse, win_lse
     torch.cuda.empty_cache()
     return rows
+
+
+def has_name(name: str) -> bool:
+    """Whether the dotted ``name`` exists: its longest importable module
+    prefix, then attributes."""
+    import importlib
+
+    parts = name.split(".")
+    for i in range(len(parts), 0, -1):
+        try:
+            obj = importlib.import_module(".".join(parts[:i]))
+        except ImportError:
+            continue
+        for attr in parts[i:]:
+            if not hasattr(obj, attr):
+                return False
+            obj = getattr(obj, attr)
+        return True
+    return False
+
+
+def analyze_phase(dev: torch.device, problem) -> dict[str, int]:
+    """analyze: the port's static analyzer on the card. Its run contracts at
+    the JAX package's toy sizes (``run_contracts()``: one capture per run
+    signature, launches linear in R, two replays under sync debug mode
+    "error", the carries in place, the sweep buckets sharing a graph), then
+    the lockstep and LAG contracts on ``problem`` (RCV1 width, H 1,000, R 3
+    and 6), whose captured graphs launch ``sdca_inner`` at full width; that
+    every spelling of the ``version-floor`` rule is missing from this
+    torch; the lint of ``src/repro_torch`` against its baseline; and ``python -m
+    repro_torch analyze`` in a subprocess. Every verdict must be ok. Returns
+    the phase's launches (the counts are zeroed at its start)."""
+    from repro_torch.analysis import contracts, lint
+    from repro_torch.analysis.findings import Baseline
+    from repro_torch.core import executor
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toy = contracts.run_contracts(device=dev)
+    emit("analyze_contracts", size="toy K 2, n_k 3, d 4, R 3 and 6",
+         seconds=time.perf_counter() - t0,
+         verdicts={r.name: r.ok for r in toy}, details={r.name: r.detail for r in toy})
+    for r in toy:
+        check(r.ok, f"analyze (toy): {r.format()}")
+    for stat, check_fn in (("lockstep", contracts.check_lockstep_contracts),
+                           ("lag", contracts.check_lag_contracts)):
+        t0 = time.perf_counter()
+        results = check_fn(dev, problem=problem, H=H, rounds=(3, 6))
+        graph = executor.last_graph(stat)
+        emit("analyze_contracts_rcv1", path=stat, shape=dict(K=K, n_k=N_K, d=D, H=H),
+             rounds=[3, 6], seconds=time.perf_counter() - t0,
+             verdicts={r.name: r.ok for r in results},
+             details={r.name: r.detail for r in results},
+             graph_launches_r6=dict(graph.launches), capture_ms_r6=graph.capture_ms)
+        for r in results:
+            check(r.ok, f"analyze (RCV1 width): {r.format()}")
+        check(graph.launches["sdca_inner"] > 0,
+              f"analyze: the captured {stat} graph launches sdca_inner")
+    launches = dict(ops.LAUNCHES)
+    # version-floor's table: every spelling still missing from this torch.
+    floor = lint.get_rule("version-floor")
+    present = [n for n in sorted(floor.BANNED) if has_name(n)] + [
+        f"Tensor.{m}" for m in sorted(floor.TENSOR_METHODS) if hasattr(torch.Tensor, m)]
+    emit("analyze_version_floor", torch=torch.__version__,
+         spellings=len(floor.BANNED) + len(floor.TENSOR_METHODS), present_here=present)
+    check(not present, f"analyze: version-floor's spellings are missing from this torch "
+          f"(present: {present})")
+    t0 = time.perf_counter()
+    found = lint.lint_paths([ROOT / "src" / "repro_torch"], root=ROOT)
+    new, accepted, stale = Baseline.load(ROOT / "ANALYSIS_BASELINE_TORCH.json").split(found)
+    emit("analyze_lint", rules=list(lint.default_rules()), findings=len(found), new=len(new),
+         accepted=len(accepted), stale=len(stale), seconds=time.perf_counter() - t0,
+         files=len(list((ROOT / "src" / "repro_torch").rglob("*.py"))))
+    check(not new and not stale, "analyze: the port lints clean against its baseline")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch", "analyze"], capture_output=True,
+                          text=True, timeout=600, env=env, cwd=ROOT)
+    emit("analyze_cli", returncode=proc.returncode, wall_s=time.perf_counter() - t0,
+         last_line=(proc.stdout.splitlines() or [""])[-1], stderr_tail=proc.stderr[-400:])
+    check(proc.returncode == 0, "python -m repro_torch analyze exits 0 on the card")
+    return launches
 
 
 def dryrun_phase(dev: torch.device) -> dict:
@@ -739,6 +916,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # torch.compile's caches (the flex_attention yardstick) stay in the checkout.
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / ".compile_cache" / sub))
     from repro_torch.api import problems
     from repro_torch.api.session import EvalEvent, RoundEvent, Session
     from repro_torch.core import acpd, baselines, engine, filter as msg_filter, objectives, sdca
@@ -1621,6 +1801,11 @@ def main() -> int:
     check(proc.returncode == 0 and prov is not None and prov["device"].startswith("cuda"),
           "python -m repro_torch run ran the spec on the card")
 
+    # -- analyze: the static analyzer's run contracts on the captured graphs -
+    t0 = time.perf_counter()
+    launches["analyze"] = analyze_phase(dev, problem)
+    emit("phase_seconds", path="analyze", seconds=time.perf_counter() - t0)
+
     # Free the ACPD problem (6.2 GB of X) and the captured graphs' memory
     # before the model's 29.5 GB (gc: objects in reference cycles hold some).
     import gc
@@ -2174,9 +2359,8 @@ def main() -> int:
         ms = time_ms(lambda: ops.flash_attention_fwd(q, k_, v_, **kw), warmup=2, reps=10)
         plain_ms = time_ms(lambda: ref.flash_attention_fwd_ref(q, k_, v_, **kw),
                            warmup=1, reps=3)
-        B_, S_, KV_, G_, hd_ = q.shape
-        qs = q.reshape(B_, S_, KV_ * G_, hd_).transpose(1, 2).contiguous()
-        ks, vs = k_.transpose(1, 2).contiguous(), v_.transpose(1, 2).contiguous()
+        S_ = q.shape[1]
+        qs, ks, vs = _heads_first(q, k_, v_)
         if window is None:
             lib_kw = dict(is_causal=causal)
         else:  # True where query i may attend to key j

@@ -12,8 +12,11 @@ Subcommands:
 * ``serve``            -- the multi-tenant experiment service over HTTP, or
   with ``--replica-of <cluster-dir>`` one replica of the replicated cluster
   (:func:`repro_torch.serve.http.main`; ``--device cpu`` for the host).
-* ``bench``, ``analyze`` -- not ported yet; each exits nonzero naming the
-  ROADMAP item that ports it.
+* ``analyze``          -- the static analyzer (AST lint + run contracts,
+  :func:`repro_torch.analysis.cli.main`; ``--device cpu`` runs the
+  contracts on the host).
+* ``bench``            -- not ported yet; exits nonzero naming the ROADMAP
+  item that ports it.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import sys
 
 # Subcommands of ``python -m repro`` that the port does not have yet, with
 # the ROADMAP item that ports each.
-NOT_PORTED = {"bench": "A9 (benchmarks)", "analyze": "A8 (tooling)"}
+NOT_PORTED = {"bench": "A9 (benchmarks)"}
 
 
 def _cmd_run(args) -> int:
@@ -153,7 +156,10 @@ def main(argv: list[str] | None = None) -> int:
     for name, item in NOT_PORTED.items():
         sub.add_parser(name, add_help=False,
                        help=f"not ported yet (ROADMAP {item})").set_defaults(fn=None)
-    # `serve` owns its flag surface; the raw remainder is forwarded to it.
+    # `analyze` and `serve` own their flag surfaces; the raw remainder is
+    # forwarded to them.
+    sub.add_parser("analyze", add_help=False,
+                   help="static analysis: project lint + run contracts").set_defaults(fn=None)
     sub.add_parser("serve", add_help=False,
                    help="multi-tenant experiment service over HTTP").set_defaults(fn=None)
 
@@ -161,6 +167,10 @@ def main(argv: list[str] | None = None) -> int:
         argv = sys.argv[1:]
     if argv and argv[0] in NOT_PORTED:
         return _not_ported(argv[0])
+    if argv and argv[0] == "analyze":
+        from repro_torch.analysis.cli import main as analyze_main
+
+        return analyze_main(argv[1:])
     if argv and argv[0] == "serve":
         from repro_torch.serve.http import main as serve_main
 

@@ -74,7 +74,7 @@ class Problem:
         return self.y.reshape(self.n)
 
 
-def lam_n_f32(lam: float, n: int) -> float:
+def lam_n_f32(lam: float, n: int) -> float:  # analysis: host-ok (CPU scalars, no device tensor)
     """lambda * n as the JAX reference rounds it: a float32 product."""
     return float(torch.tensor(lam, dtype=torch.float32)
                  * torch.tensor(float(n), dtype=torch.float32))

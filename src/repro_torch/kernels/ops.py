@@ -17,7 +17,11 @@ Its updates are safe from any thread (the experiment service launches from
 several). A thread that records a CUDA graph counts its launches apart
 (:func:`recording_launches`): they run when the graph replays, and the
 replay adds them (:func:`add_launches`), so another thread's launches that
-happen meanwhile are neither lost nor taken for the graph's.
+happen meanwhile are neither lost nor taken for the graph's. On the CPU,
+where nothing launches, a recording block counts the wrappers' calls of
+their plain versions instead: the launches the same calls make on the card
+(the analyzer's contracts read them, ``repro_torch.analysis.contracts``);
+``LAUNCHES`` never counts a plain call.
 """
 
 from __future__ import annotations
@@ -61,10 +65,17 @@ def _count(name: str) -> None:
         LAUNCHES[name] += 1
 
 
+def _count_plain(name: str) -> None:
+    recording = getattr(_RECORDING, "counts", None)
+    if recording is not None:
+        recording[name] += 1
+
+
 @contextlib.contextmanager
 def recording_launches():
     """Count this thread's launches into the yielded dict instead of
-    ``LAUNCHES`` (a stream capture: they run only when the graph replays)."""
+    ``LAUNCHES`` (a stream capture: they run only when the graph replays),
+    and its calls of the plain versions on the CPU."""
     prev = getattr(_RECORDING, "counts", None)
     counts = dict.fromkeys(LAUNCHES, 0)
     _RECORDING.counts = counts
@@ -98,6 +109,7 @@ def topk_filter(dw: torch.Tensor, k: int):
         out = topk_filter_cuda(dw, k)
         _count("topk_filter")
         return out
+    _count_plain("topk_filter")
     return topk_filter_plain(dw, k)
 
 
@@ -127,6 +139,7 @@ def sdca_epoch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,
                               sigma_rows=sigma_rows)
         _count("sdca_inner")
         return out
+    _count_plain("sdca_inner")
     return ref.sdca_inner_ref(w_eff, alpha, X, y, norms_sq, lam, n_global,
                               sigma_prime, idx, loss=loss, workers=workers,
                               alpha_rows=alpha_rows, sigma_rows=sigma_rows)
@@ -172,4 +185,5 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: float | None 
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention_fwd: no kernel and no plain version on {q.device}; "
                          "q must lie on a CUDA device, the CPU or meta")
+    _count_plain("flash_attention_fwd")
     return ref.flash_attention_fwd_ref(q, k, v, **kw)

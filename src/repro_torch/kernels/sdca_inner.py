@@ -85,7 +85,7 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _max_d(device: int, n_k: int) -> int:
     with _C_LOCK:
-        return int(_lib().sdca_inner_max_d(n_k))
+        return int(_lib().sdca_inner_max_d(n_k))  # analysis: host-ok (a C int)
 
 
 def max_d(n_k: int) -> int:
@@ -201,7 +201,7 @@ def _device_map(workers: torch.Tensor, map_error, device) -> torch.Tensor:
     return workers
 
 
-def _worker_map(workers, K: int, device) -> torch.Tensor:
+def _worker_map(workers, K: int, device) -> torch.Tensor:  # analysis: host-ok (a host map)
     """A host map as an int32 tensor on ``device``, checked on the host first."""
     host = torch.as_tensor(workers, dtype=torch.int64).flatten()
     if host.numel() == 0:

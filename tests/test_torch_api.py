@@ -148,7 +148,7 @@ def test_cli_run_on_the_cpu(tmp_path):
             _cli(tmain.main, ["run", str(path)])
 
 
-@pytest.mark.parametrize("cmd,item", [("bench", "A9"), ("analyze", "A8")])
+@pytest.mark.parametrize("cmd,item", [("bench", "A9")])
 def test_cli_names_the_roadmap_item_of_what_is_not_ported(cmd, item):
     rc, out, err = _cli(tmain.main, [cmd, "--quick"])
     assert rc != 0 and out == ""
