@@ -42,6 +42,7 @@ from repro_torch.core import solvers as solvers_lib
 from repro_torch.core.acpd import MethodConfig, RunRecord, RunResult
 from repro_torch.core.simulate import ClusterModel
 from repro_torch.device import resolve_device
+from repro_torch.tracing import span
 
 # ---------------------------------------------------------------------------
 # Events.
@@ -183,8 +184,9 @@ class Session:
         # The protocol instance is built for both executors: its __init__
         # carries the per-protocol validation, and its untouched draw source
         # and key are what the whole-run executor draws from.
-        self.proto = engine.get_protocol(method.protocol)(
-            problem, method, cluster, seed=seed, draws=draws)
+        with span("session.setup"):
+            self.proto = engine.get_protocol(method.protocol)(
+                problem, method, cluster, seed=seed, draws=draws)
         ok, why = executor_lib.scan_supported(
             method, cluster, eval_mode=eval_mode, target_gap=target_gap,
             time_budget=time_budget)
@@ -225,9 +227,10 @@ class Session:
 
     def run(self) -> RunResult:
         """Drain the stream and return the folded RunResult."""
-        for _ in self.events():
-            pass
-        return self.result()
+        with span("session.run"):
+            for _ in self.events():
+                pass
+            return self.result()
 
     def result(self) -> RunResult:
         if self._result is None:
@@ -262,10 +265,11 @@ class Session:
         reason = "completed"
 
         for r in range(proto.num_rounds(self.num_outer)):
-            need = proto.arrivals_needed(r)
-            arrived = [heapq.heappop(queue) for _ in range(need)]
-            for msg in proto.process_round(r, arrived):
-                heapq.heappush(queue, msg)
+            with span("engine.round"):  # closed before the round's events
+                need = proto.arrivals_needed(r)
+                arrived = [heapq.heappop(queue) for _ in range(need)]
+                for msg in proto.process_round(r, arrived):
+                    heapq.heappush(queue, msg)
             iteration += 1
 
             yield RoundEvent(
@@ -306,8 +310,9 @@ class Session:
                 break
 
         if not streaming:
-            records = engine._materialize_records(snaps, self.problem,
-                                                  self.eval_mode)
+            with span("engine.eval", timed=True):
+                records = engine._materialize_records(snaps, self.problem,
+                                                      self.eval_mode)
             for rec in records:
                 yield EvalEvent(**dataclasses.asdict(rec))
         self._result = proto.finalize(records)

@@ -357,7 +357,7 @@ def _lockstep_cells(problem, method, cells, *, num_outer, eval_every, batch):
     dev = problem.X.device
     R = num_outer
     mcfgs, sigma_ps = _cell_methods(method, cells, K)
-    norms_sq = torch.sum(problem.X * problem.X, dim=-1)
+    norms_sq = engine.norms_sq_of(problem.X)
     evals = executor._eval_indices(R, eval_every)
     n_slots = executor.eval_slots(evals)
     solver = executor.lockstep_solver(method)
@@ -427,7 +427,7 @@ def _lag_cells(problem, method, cells, *, num_outer, eval_every, batch):
     comp = compress_lib.for_method(method, d)
     needs = executor.lag_needs(method, K, R)
     mcfgs, _ = _cell_methods(method, cells, K)
-    norms_sq = torch.sum(problem.X * problem.X, dim=-1)
+    norms_sq = engine.norms_sq_of(problem.X)
     evals = executor._eval_indices(R, eval_every)
     n_slots = executor.eval_slots(evals)
     per_cell = []

@@ -26,9 +26,13 @@ Device work, on the problem's device:
   (``partial_work``) is one launch per chunk for all its workers. The
   lockstep methods launch all K workers a round (``accelerated``: one
   launch per inner round);
-* each server round is a few tensor ops, then one host pull of the replies'
-  ``nnz`` for the byte accounting (none when replies are dense); ``lag``
-  adds one pull of its skip flags per group;
+* each server round is a few tensor ops and waits on the stream six times
+  on the card (a ``group`` round with sparse replies): one host pull of the
+  replies' ``nnz`` for the byte accounting (none when replies are dense),
+  and five copies from pageable host memory, which wait for the work queued
+  before them: three worker indices, the applied mask and the kernel's
+  worker map; ``lag`` adds one pull of its skip flags per group. Each sits
+  in a ``sync.*`` span (:mod:`repro_torch.tracing`);
 * duality-gap evaluation is deferred: ``(w, alpha)`` snapshots are kept
   during the loop and scored after it (:func:`_materialize_records`), in
   ``batched`` mode by two float32 products over ``X`` for all snapshots at
@@ -71,6 +75,7 @@ from repro_torch.core.objectives import _full_fp32, lam_n_f32
 from repro_torch.core.sdca import TorchDraws, as_orders
 from repro_torch.core.simulate import ClusterModel
 from repro_torch.kernels import ops
+from repro_torch.tracing import span
 
 # ---------------------------------------------------------------------------
 # Protocol registry.
@@ -208,7 +213,7 @@ def _materialize_records(snaps: list[_Snapshot], problem: objectives.Problem,
         p, dv, gap, gap_srv = _eval_batched(torch.stack([s.w for s in snaps]),
                                             torch.stack([s.alpha for s in snaps]),
                                             problem)
-        rows = list(zip(*(t.tolist() for t in (p, dv, gap, gap_srv))))
+        rows = list(zip(*(host_list(t, "certificates") for t in (p, dv, gap, gap_srv))))
     else:
         raise ValueError(f"unknown eval_mode {eval_mode!r}")
     return [
@@ -219,6 +224,24 @@ def _materialize_records(snaps: list[_Snapshot], problem: objectives.Problem,
                   comm_time=s.comm_time)
         for s, (p, dv, gap, gap_srv) in zip(snaps, rows)
     ]
+
+
+def host_list(t: torch.Tensor, site: str) -> list:
+    """``t.tolist()``, a read that waits for the stream, in its ``sync.<site>`` span."""
+    with span(f"sync.{site}"):
+        return t.tolist()
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A run's result on the host (``t.cpu().numpy()``), in a ``sync.result`` span."""
+    with span("sync.result"):
+        return t.cpu().numpy()
+
+
+def norms_sq_of(X: torch.Tensor) -> torch.Tensor:
+    """Every row's squared norm, ``(K, n_k)``, in a ``solver.norms_sq`` span."""
+    with span("solver.norms_sq", timed=True):
+        return torch.sum(X * X, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +263,8 @@ def lockstep_round(w: torch.Tensor, alpha: torch.Tensor, gamma, solve):
 
 def sigma_tensor(sigma_p: float, device) -> torch.Tensor:
     """sigma' as the 0-dim float32 tensor every local solve reads."""
-    return torch.tensor(sigma_p, dtype=torch.float32, device=device)
+    with span("sync.sigma"):  # a pageable copy to the device
+        return torch.tensor(sigma_p, dtype=torch.float32, device=device)
 
 
 def group_local_rounds(w_local, alpha, residual, widx, workers, idx,
@@ -428,7 +452,8 @@ class Protocol:
         return sub
 
     def _index(self, workers) -> torch.Tensor:
-        return torch.tensor(workers, dtype=torch.int64, device=self.device)
+        with span("sync.index"):  # a pageable copy to the device
+            return torch.tensor(workers, dtype=torch.int64, device=self.device)
 
     # --- hooks the Session loop calls (contract in the class docstring) ---
 
@@ -485,7 +510,7 @@ class GroupProtocol(Protocol):
         self.alpha_applied = torch.zeros((self.K, self.n_k), dtype=dt, device=dev)
         self.alpha = torch.zeros((self.K, self.n_k), dtype=dt, device=dev)
         self.residual = torch.zeros((self.K, self.d), dtype=dt, device=dev)
-        self.norms_sq = torch.sum(problem.X * problem.X, dim=-1)
+        self.norms_sq = norms_sq_of(problem.X)
 
     def num_rounds(self, num_outer: int) -> int:
         return num_outer * self.method.T
@@ -542,33 +567,34 @@ class GroupProtocol(Protocol):
         """
         if not starts:
             return []
-        m = self.method
-        # One size-K numpy draw per round for vector-sampled delay models,
-        # per-message scalar draws otherwise (the JAX package's order).
-        durations = (self.delay.sample_round(m.H, self.rng)
-                     if self.delay.vector_sampled else None)
-        alpha_rows, sents, skips = self._round_payloads([k for k, _ in starts])
-        out = []
-        for j, (k, start) in enumerate(starts):
-            if pre_account is not None:
-                rbytes, down_time = pre_account[j]
-                self.bytes_down += rbytes
-                self.comm_time += down_time
-            skipped = bool(skips[j]) if skips is not None else False
-            nbytes = self._message_bytes(skipped)
-            duration = (durations[k] if durations is not None
-                        else self.delay.compute_time(k, m.H, self.rng))
-            up_time = self.delay.p2p_time(nbytes, k)
-            self.compute_time += duration
-            self.comm_time += up_time
-            self.bytes_up += nbytes
-            self.seq += 1
-            msg = Message(start + duration + up_time, k, sents[j],
-                          alpha_rows[j], nbytes, self.seq,
-                          applied=not skipped)
-            self._observe_launch(k, start, msg.arrival)
-            out.append(msg)
-        return out
+        with span("engine.launch"):
+            m = self.method
+            # One size-K numpy draw per round for vector-sampled delay models,
+            # per-message scalar draws otherwise (the JAX package's order).
+            durations = (self.delay.sample_round(m.H, self.rng)
+                         if self.delay.vector_sampled else None)
+            alpha_rows, sents, skips = self._round_payloads([k for k, _ in starts])
+            out = []
+            for j, (k, start) in enumerate(starts):
+                if pre_account is not None:
+                    rbytes, down_time = pre_account[j]
+                    self.bytes_down += rbytes
+                    self.comm_time += down_time
+                skipped = bool(skips[j]) if skips is not None else False
+                nbytes = self._message_bytes(skipped)
+                duration = (durations[k] if durations is not None
+                            else self.delay.compute_time(k, m.H, self.rng))
+                up_time = self.delay.p2p_time(nbytes, k)
+                self.compute_time += duration
+                self.comm_time += up_time
+                self.bytes_up += nbytes
+                self.seq += 1
+                msg = Message(start + duration + up_time, k, sents[j],
+                              alpha_rows[j], nbytes, self.seq,
+                              applied=not skipped)
+                self._observe_launch(k, start, msg.arrival)
+                out.append(msg)
+            return out
 
     def _observe_launch(self, k: int, start: float, arrival: float) -> None:
         """Per-launch hook (adaptive disciplines observe round latencies)."""
@@ -582,7 +608,7 @@ class GroupProtocol(Protocol):
         self._last_reply_sq, nnz = reply(self.w_local, self.dw_tilde, widx)
         if self.dense or not reply_workers:
             return None
-        return nnz.tolist()  # the one sync of the round
+        return host_list(nnz, "reply_nnz")
 
     def _aggregate(self, payloads) -> None:
         """Alg. 1 lines 8/10 (:func:`aggregate`)."""
@@ -591,15 +617,17 @@ class GroupProtocol(Protocol):
 
     def _apply_server(self, arrived):
         """Aggregation + replies; returns (server_time, reply nnz)."""
-        server_time = max(m.arrival for m in arrived)
-        workers = [m.worker for m in arrived]
-        self._aggregate(m.payload for m in arrived)
-        # LAG heartbeats' dual snapshots must not become server-visible.
-        mask = torch.tensor([m.applied for m in arrived], device=self.device)
-        snap = torch.stack([m.alpha_snapshot for m in arrived])
-        self.alpha_applied = apply_snapshots(self.alpha_applied, self._index(workers), snap,
-                                             mask)
-        return server_time, self._reply(workers)
+        with span("engine.server"):
+            server_time = max(m.arrival for m in arrived)
+            workers = [m.worker for m in arrived]
+            self._aggregate(m.payload for m in arrived)
+            # LAG heartbeats' dual snapshots must not become server-visible.
+            with span("sync.applied_mask"):  # a pageable copy to the device
+                mask = torch.tensor([m.applied for m in arrived], device=self.device)
+            snap = torch.stack([m.alpha_snapshot for m in arrived])
+            self.alpha_applied = apply_snapshots(self.alpha_applied, self._index(workers), snap,
+                                                 mask)
+            return server_time, self._reply(workers)
 
     def _reply_billing(self, j, worker, nnz_host) -> tuple[int, float]:
         """(bytes, link time) of arrival ``j``'s catch-up reply."""
@@ -627,9 +655,9 @@ class GroupProtocol(Protocol):
                          self.w_server, self.alpha_applied)
 
     def finalize(self, records):
-        return RunResult(self.method, records, self.w_server.cpu().numpy(),
-                         self.alpha.cpu().numpy(),
-                         alpha_applied=self.alpha_applied.cpu().numpy())
+        return RunResult(self.method, records, host_array(self.w_server),
+                         host_array(self.alpha),
+                         alpha_applied=host_array(self.alpha_applied))
 
 
 @register_protocol("async")
@@ -688,7 +716,7 @@ class LagProtocol(GroupProtocol):
         sents, res_rows, skip = lag_skip(self._ref_buf, self._ref_len, widx,
                                          self.method.lag_xi, dw, sents, new_res)
         self.residual.index_copy_(0, widx, res_rows)
-        return alpha_rows, sents, skip.tolist()  # one pull per group
+        return alpha_rows, sents, host_list(skip, "lag_skip")  # one pull per group
 
     def _message_bytes(self, skipped):
         return self.HEARTBEAT_BYTES if skipped else self.up_bytes
@@ -732,7 +760,7 @@ class SyncProtocol(Protocol):
         dt, dev = problem.X.dtype, self.device
         self.w = torch.zeros((self.d,), dtype=dt, device=dev)
         self.alpha = torch.zeros((self.K, self.n_k), dtype=dt, device=dev)
-        self.norms_sq = torch.sum(problem.X * problem.X, dim=-1)
+        self.norms_sq = norms_sq_of(problem.X)
         self.solver = solvers_lib.get_solver("sdca")
 
     def num_rounds(self, num_outer: int) -> int:
@@ -786,8 +814,8 @@ class SyncProtocol(Protocol):
                          self.w, self.alpha)
 
     def finalize(self, records):
-        return RunResult(self.method, records, self.w.cpu().numpy(),
-                         self.alpha.cpu().numpy())
+        return RunResult(self.method, records, host_array(self.w),
+                         host_array(self.alpha))
 
 
 @register_protocol("cocoa")

@@ -20,11 +20,12 @@ computes another selection.
 
 Leaves are visited in the JAX package's order (dict keys sorted). The step
 is a tensor on the device, and the dense-step and participation decisions
-are made there with ``torch.where``. The one host sync is in the filter:
+are made there with ``torch.where``. The host syncs are in the filter:
 ``compress.threshold_for_topk``'s histogram rounds call ``torch.bincount``,
-which on CUDA reads its input's maximum back to the host to size its output:
-one sync per round, two rounds per leaf and group (a fused exchange kernel
-that removes it is queued in ROADMAP A7).
+which on CUDA reads its input's minimum and maximum back to the host to
+size its output, and copy one constant to the device from pageable memory:
+three syncs per round, two rounds per leaf and group (a fused exchange
+kernel that removes them is queued in ROADMAP D1).
 :func:`exchange_sequential` writes the new residuals into the state's
 tensors (K float32 copies of the model; a second set would not fit at full
 width) and returns the state holding them; :func:`exchange` returns new
@@ -41,6 +42,7 @@ import torch
 
 from repro_torch.core import compress as compress_lib
 from repro_torch.models.param import tree_flatten, tree_map
+from repro_torch.tracing import span
 
 PyTree = Any
 
@@ -126,27 +128,30 @@ def exchange_sequential(cfg: ExchangeConfig, grad_fn: Callable, params: PyTree,
     sent_total = torch.zeros((), dtype=torch.float32, device=dev)
     bytes_total = torch.zeros((), dtype=torch.float32, device=dev)
     for g in range(G):
-        grads, _ = tree_flatten(grad_fn(params, {k: v[g] for k, v in grouped_batch.items()}))
-        pg = p[g]
-        sent_count = torch.zeros((), dtype=torch.float32, device=dev)
-        byte_count = torch.zeros((), dtype=torch.float32, device=dev)
-        for i, res in enumerate(res_leaves):
-            dw = res[g] + grads[i].to(torch.float32)
-            grads[i] = None  # free this group's gradient leaf as it is used
-            sent, mask, always_dense = leaf_filter(dw)
-            acc[i] += pg * sent
-            res[g] = torch.where(pg > 0, dw - sent, dw)
-            if always_dense:  # host numbers: no copy to the device
-                kept, nbytes = dw.numel(), float(_DENSE.payload_bytes(dw.numel()))
-            else:
-                kept = torch.sum(mask)
-                nbytes = torch.where(dense_step, _DENSE.payload_bytes(kept),
-                                     comp.payload_bytes(kept)).to(torch.float32)
-            del dw, sent, mask
-            sent_count = sent_count + pg * kept
-            byte_count = byte_count + pg * nbytes
-        sent_total = sent_total + sent_count
-        bytes_total = bytes_total + byte_count
+        with span("exchange.group"):
+            batch_g = {k: v[g] for k, v in grouped_batch.items()}
+            grads, _ = tree_flatten(grad_fn(params, batch_g))
+            pg = p[g]
+            sent_count = torch.zeros((), dtype=torch.float32, device=dev)
+            byte_count = torch.zeros((), dtype=torch.float32, device=dev)
+            for i, res in enumerate(res_leaves):
+                with span("exchange.leaf"):
+                    dw = res[g] + grads[i].to(torch.float32)
+                    grads[i] = None  # free this group's gradient leaf as it is used
+                    sent, mask, always_dense = leaf_filter(dw)
+                    acc[i] += pg * sent
+                    res[g] = torch.where(pg > 0, dw - sent, dw)
+                    if always_dense:  # host numbers: no copy to the device
+                        kept, nbytes = dw.numel(), float(_DENSE.payload_bytes(dw.numel()))
+                    else:
+                        kept = torch.sum(mask)
+                        nbytes = torch.where(dense_step, _DENSE.payload_bytes(kept),
+                                             comp.payload_bytes(kept)).to(torch.float32)
+                    del dw, sent, mask
+                    sent_count = sent_count + pg * kept
+                    byte_count = byte_count + pg * nbytes
+            sent_total = sent_total + sent_count
+            bytes_total = bytes_total + byte_count
 
     update = unflatten([cfg.gamma * a / denom for a in acc])
     total = float(sum(r.numel() for r in res_leaves))

@@ -86,6 +86,7 @@ from repro_torch.core.sdca import TorchDraws, as_orders
 from repro_torch.core.simulate import ClusterModel
 from repro_torch.kernels import ops
 from repro_torch.kernels import sdca_inner as sdca_kernel
+from repro_torch.tracing import span
 
 LOCKSTEP_PROTOCOLS = ("sync", "cocoa", "cocoa_plus")
 # Protocols whose run bodies batch into shared sweep cells (repro_torch.api.sweep).
@@ -266,24 +267,26 @@ class ScanRun:
             return self.stream_records
         if not self.eval_rounds:
             return []
-        if eval_mode == "replay":
-            rows = []
-            for i in range(len(self.eval_rounds)):
-                cert = objectives.gap_certificate(problem, self.eval_alphas[i],
-                                                  w=self.eval_ws[i])
-                rows.append((cert["primal"], cert["dual"], cert["gap"],
-                             cert["gap_server"]))
-        elif eval_mode == "batched":
-            p, dv, gap, gap_srv = engine._eval_batched(self.eval_ws, self.eval_alphas,
-                                                       problem)
-            rows = list(zip(*(t.tolist() for t in (p, dv, gap, gap_srv))))
-        else:
-            raise ValueError(f"unknown eval_mode {eval_mode!r}")
+        with span("engine.eval", timed=True):
+            if eval_mode == "replay":
+                rows = []
+                for i in range(len(self.eval_rounds)):
+                    cert = objectives.gap_certificate(problem, self.eval_alphas[i],
+                                                      w=self.eval_ws[i])
+                    rows.append((cert["primal"], cert["dual"], cert["gap"],
+                                 cert["gap_server"]))
+            elif eval_mode == "batched":
+                p, dv, gap, gap_srv = engine._eval_batched(self.eval_ws, self.eval_alphas,
+                                                           problem)
+                rows = list(zip(*(engine.host_list(t, "certificates")
+                                  for t in (p, dv, gap, gap_srv))))
+            else:
+                raise ValueError(f"unknown eval_mode {eval_mode!r}")
         return [_record(self.rounds[r], r, *row) for r, row in zip(self.eval_rounds, rows)]
 
     def finalize(self, records) -> RunResult:
         def host(t):
-            return None if t is None else t.cpu().numpy()
+            return None if t is None else engine.host_array(t)
 
         return RunResult(self.method, records, host(self.w), host(self.alpha),
                          alpha_applied=host(self.alpha_applied))
@@ -372,8 +375,10 @@ class Graphed:
         with _LOCK:
             STATS[f"{self.stat}_calls"] += 1
             if self.graph is None:
-                self._capture(inputs)
-            with torch.cuda.device(self.device), _sync_debug(REPLAY_SYNC_DEBUG):
+                with span("executor.capture", timed=True):
+                    self._capture(inputs)
+            with torch.cuda.device(self.device), _sync_debug(REPLAY_SYNC_DEBUG), \
+                    span("executor.replay", timed=True):
                 stream = torch.cuda.current_stream(self.device)
                 if self._done is not None:
                     stream.wait_event(self._done)
@@ -538,7 +543,7 @@ def run_scan(problem: objectives.Problem, method: MethodConfig,
     hands over its protocol's, untouched, so both backends draw the same.
     """
     if norms_sq is None:
-        norms_sq = torch.sum(problem.X * problem.X, dim=-1)
+        norms_sq = engine.norms_sq_of(problem.X)
     if draws is None:
         draws, key = _draws_for(None, seed, problem.X.device)
     kw = dict(num_outer=num_outer, seed=seed, eval_every=eval_every, norms_sq=norms_sq,
@@ -748,8 +753,8 @@ def _run_lockstep_gap(problem, method, cluster, *, num_outer, seed, eval_every, 
                                     problem.X.device, "lockstep_gap",
                                     _prepare_kernel(problem, [K])))
     out = run(inp)
-    certs = out["certs"].double().cpu().numpy()
-    done = out["done"].cpu().numpy()
+    certs = engine.host_array(out["certs"].double())
+    done = engine.host_array(out["done"])
     hit = bool(done.any())
     stop = int(np.argmax(done)) if hit else R - 1
     records = [_record(rounds[r], r, *certs[i]) for i, r in enumerate(evals) if r <= stop]
@@ -1028,10 +1033,10 @@ class QueueRun:
 
 def queue_accounts(out, needs, T: int) -> list[RoundAccount]:
     """RoundAccounts from a queue run's per-round outputs (one pull each)."""
-    sim = out["sim"].cpu().numpy()
-    bu, bd = out["bytes_up"].cpu().numpy(), out["bytes_down"].cpu().numpy()
-    ct, cm = out["compute"].cpu().numpy(), out["comm"].cpu().numpy()
-    arrivals = (out["harvested"].cpu().numpy() if "harvested" in out
+    sim = engine.host_array(out["sim"])
+    bu, bd = engine.host_array(out["bytes_up"]), engine.host_array(out["bytes_down"])
+    ct, cm = engine.host_array(out["compute"]), engine.host_array(out["comm"])
+    arrivals = (engine.host_array(out["harvested"]) if "harvested" in out
                 else np.asarray(needs))
     return [RoundAccount(int(arrivals[r]), r % T == T - 1, float(sim[r]), int(bu[r]),
                          int(bd[r]), float(ct[r]), float(cm[r]))
@@ -1198,7 +1203,7 @@ def run_lockstep_checkpointed(problem, method: MethodConfig, cluster: ClusterMod
     from repro_torch.checkpoint import checkpoint as ckpt_lib
 
     if norms_sq is None:
-        norms_sq = torch.sum(problem.X * problem.X, dim=-1)
+        norms_sq = engine.norms_sq_of(problem.X)
     if draws is None:
         draws, key = _draws_for(None, seed, problem.X.device)
     if not (hasattr(draws, "save") and hasattr(draws, "restore")):

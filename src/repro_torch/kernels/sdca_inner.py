@@ -55,6 +55,7 @@ import torch
 
 from repro_torch.core.objectives import lam_n_f32
 from repro_torch.kernels import _build
+from repro_torch.tracing import span
 
 NAME = "sdca_inner"
 LOSSES = {"ridge": 0, "smoothed_hinge": 1, "logistic": 2}
@@ -209,7 +210,8 @@ def _worker_map(workers, K: int, device) -> torch.Tensor:  # analysis: host-ok (
     if int(host.min()) < 0 or int(host.max()) >= K:
         raise ValueError(f"sdca_inner: workers must lie in [0, {K}), got "
                          f"{host.tolist()}")
-    return host.to(torch.int32).to(device)
+    with span("sync.worker_map"):  # a pageable copy to the device
+        return host.to(torch.int32).to(device)
 
 
 def sdca_inner_cuda(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,

@@ -45,6 +45,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import train_loss
 from repro_torch.models.param import tree_flatten
 from repro_torch.optim.optimizers import OptimizerConfig, apply_update
+from repro_torch.tracing import span
 
 PyTree = Any
 
@@ -64,12 +65,13 @@ class TrainSetup:
 def value_and_grad(loss_fn, params: PyTree, batch: dict):
     """(loss, gradient tree) of ``loss_fn(params, batch)`` in the parameters'
     dtypes. ``params`` need not require grad; they are not modified."""
-    leaves, unflatten = tree_flatten(params)
-    live = [p.detach().requires_grad_(True) for p in leaves]
-    with torch.enable_grad():
-        loss = loss_fn(unflatten(live), batch)
-        grads = torch.autograd.grad(loss, live)
-    return loss.detach(), unflatten(list(grads))
+    with span("grads", timed=True):
+        leaves, unflatten = tree_flatten(params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss = loss_fn(unflatten(live), batch)
+            grads = torch.autograd.grad(loss, live)
+        return loss.detach(), unflatten(list(grads))
 
 
 def build_train_step(setup: TrainSetup, device: str | torch.device | None = None):
@@ -99,18 +101,22 @@ def build_train_step(setup: TrainSetup, device: str | torch.device | None = None
             if leaf.device != dev:
                 raise ValueError(f"the batch's {name} lies on {leaf.device}, the step "
                                  f"runs on {dev}")
-        metrics = {}
-        if exch is None:
-            loss, update = value_and_grad(loss_fn, params, batch)
-        else:
-            with torch.no_grad():
-                loss = loss_fn(params, batch)  # monitored value
-            update, exch_state, em = exch_lib.exchange_sequential(
-                exch, grad_fn, params, grouped(batch), exch_state, opt_state.step)
-            metrics.update(em)
-        params, opt_state, om = apply_update(setup.optimizer, params, update, opt_state)
-        metrics.update(om)
-        metrics["loss"] = loss
-        return params, opt_state, exch_state, metrics
+        with span("train.step", timed=True):
+            metrics = {}
+            if exch is None:
+                loss, update = value_and_grad(loss_fn, params, batch)
+            else:
+                with torch.no_grad():
+                    loss = loss_fn(params, batch)  # monitored value
+                with span("exchange", timed=True):
+                    update, exch_state, em = exch_lib.exchange_sequential(
+                        exch, grad_fn, params, grouped(batch), exch_state, opt_state.step)
+                metrics.update(em)
+            with span("optimizer.update", timed=True):
+                params, opt_state, om = apply_update(setup.optimizer, params, update,
+                                                     opt_state)
+            metrics.update(om)
+            metrics["loss"] = loss
+            return params, opt_state, exch_state, metrics
 
     return step

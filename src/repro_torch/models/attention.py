@@ -33,6 +33,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.flash import FlashSpec, flash_attention
 from repro_torch.models.layers import rmsnorm, rope
 from repro_torch.models.param import ParamSpec
+from repro_torch.tracing import span
 
 
 def attention_spec(cfg: ModelConfig) -> dict:
@@ -68,7 +69,8 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
     k = rope(k, positions, cfg.rope_theta)
     # The scale rounded to the compute dtype first, as a weakly typed Python
     # float is in JAX: q * hd^-0.5 rounds as the JAX package's does.
-    scale = torch.tensor(hd**-0.5, dtype=dt, device=x.device)
+    with span("sync.attn_scale"):  # a pageable copy to the device
+        scale = torch.tensor(hd**-0.5, dtype=dt, device=x.device)
     q = q.reshape(B, S, KV, H // KV, hd) * scale
     return q, k, v
 
