@@ -93,7 +93,12 @@ end ``dryrun`` records every (architecture x input shape) of
 the card, its peak beside the resident estimate. It also checks that
 the bfloat16 flash kernel was compiled to tensor-core (HGMMA) and TMA
 instructions, and that one top-k filter call runs at most four kernels
-without a host sync. Launch counts are zeroed just before each path and
+without a host sync. ``kernel_exchange_threshold`` holds the exchange's
+threshold kernel to its plain rounds bit for bit at the exchange cell's
+leaf sizes, checks that a call runs its three named kernels without a host
+sync, and times it beside its bound, the plain rounds and ``torch.histc``;
+both training phases check that it ran once a group and filtered leaf of
+every step. Launch counts are zeroed just before each path and
 read just after it. Every phase prints one
 JSON line; any failure raises and the script exits non-zero. The last line
 is the device summary ``{"ok": true, "device": {...}}``.
@@ -208,6 +213,12 @@ PEAK_BF16 = 989e12
 # which the cap bends. The full-range launch at prefill_32k's length.
 SOFTCAP, CAP_SCALE, FULL_RANGE_S = 50.0, 4.0, 32_768
 
+# The exchange threshold's leaf sizes: phi3-medium-14b's at 2 layers (the
+# benchmark's exchange cell), one 5,120 x 17,920 MLP matrix and the 2-layer
+# stack of one, at the exchange's rho 1/64. Its library yardstick, one
+# torch.histc pass into the kernel's 65 bins over +-10 sigma of the input.
+THRESHOLD_SIZES, THRESHOLD_RHO, THRESHOLD_SIGMA = (91_750_400, 183_500_800), 1 / 64, 1e-3
+
 # The SDCA kernel's losses by their template argument.
 SDCA_LOSSES = ("ridge", "smoothed_hinge", "logistic")
 HINGE_ROUNDS = 3
@@ -263,6 +274,16 @@ def ptxas_by_entry(log: pathlib.Path) -> dict[str, dict]:
         elif name and "Used" in ln and "registers" in ln:
             out[name]["registers"] = int(ln.split("Used")[1].split()[0])
     return out
+
+
+def threshold_calls(spec, exch) -> int:
+    """Threshold kernel calls of one exchange step: one a group and filtered leaf."""
+    from repro_torch.models.param import tree_flatten
+
+    if exch.rho >= 1.0:
+        return 0
+    leaves = tree_flatten(spec)[0]
+    return exch.num_groups * sum(math.prod(s.shape) >= exch.min_leaf_size for s in leaves)
 
 
 def nvidia_smi() -> str:
@@ -926,6 +947,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref, sdca_inner as sdca_mod
     from repro_torch.kernels import topk_filter as topk_mod
+    from repro_torch.kernels import exchange_threshold as thr_mod
     from repro_torch.launch.hlo_analysis import flash_flops
     from repro_torch.models import model_spec
     from repro_torch.models.param import tree_materialize
@@ -941,7 +963,7 @@ def main() -> int:
 
     # -- build: one nvcc per source, all started together --------------------
     t0 = time.perf_counter()
-    sources = ("sdca_inner", "topk_filter", "flash_attn")
+    sources = ("sdca_inner", "topk_filter", "flash_attn", "exchange_threshold")
     _build.build(*sources)
     ptxas = {}
     for name in sources:
@@ -1285,6 +1307,59 @@ def main() -> int:
          library_ms=library_ms, library="torch.topk(|dw|, k)", kernels_per_call=len(topk_kernels),
          bound_ms=kernels["topk_filter"]["bound_ms"], bound_bytes=nbytes)
     del inputs, worker_dw, args, alpha_cls
+
+    # -- kernel 4: exchange_threshold at the exchange cell's leaf sizes ------
+    thr_by_size = {}
+    for n_leaf in THRESHOLD_SIZES:
+        x = torch.randn(n_leaf, generator=gen, device=dev).mul_(THRESHOLD_SIGMA)
+        k_leaf = max(1, int(n_leaf * THRESHOLD_RHO))
+        for refine in (True, False):
+            got = ops.exchange_threshold(x, k_leaf, refine)
+            want = thr_mod.exchange_threshold_plain(x, k_leaf, refine)
+            equal = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+            emit("kernel_exchange_threshold_check", n=n_leaf, k=k_leaf, refine=refine,
+                 threshold=float(got), plain=float(want), bits_equal_plain=equal)
+            check(equal, f"exchange_threshold equals its plain rounds bit for bit "
+                  f"(n {n_leaf}, refine {refine})")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ops.exchange_threshold(x, k_leaf)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            ops.exchange_threshold(x, k_leaf)
+            torch.cuda.synchronize()
+        split: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                split[e.name] = split.get(e.name, 0.0) + e.device_time_total / 1e3
+        check(len(split) == 3 and all("exchange_threshold" in k for k in split),
+              f"one refined exchange_threshold call ran three named kernels: {list(split)}")
+        lim = 10 * THRESHOLD_SIGMA
+        nbytes = 12 * n_leaf  # x read by the max pass and both rounds
+        thr_by_size[n_leaf] = row = dict(
+            k=k_leaf, ms=time_ms(lambda: ops.exchange_threshold(x, k_leaf), warmup=3, reps=20),
+            ms_unrefined=time_ms(lambda: ops.exchange_threshold(x, k_leaf, False),
+                                 warmup=3, reps=20),
+            plain_ms=time_ms(lambda: thr_mod.exchange_threshold_plain(x, k_leaf),
+                             warmup=2, reps=5),
+            library_ms=time_ms(lambda: torch.histc(x, bins=65, min=-lim, max=lim),
+                               warmup=3, reps=20),
+            bound_ms=nbytes / PEAK_BYTES * 1e3, bound_bytes=nbytes, split_ms=split)
+        emit("kernel_exchange_threshold", n=n_leaf, dtype="float32", refine=True,
+             library="torch.histc(x, 65 bins)", **row)
+        del x, got, want
+    torch.cuda.empty_cache()
+    at = thr_by_size[THRESHOLD_SIZES[0]]
+    kernels["exchange_threshold"] = dict(
+        name="exchange_threshold", route="cuda",
+        source="src/repro_torch/csrc/exchange_threshold.cu",
+        replaces="none: src/repro/core/compress.py threshold_for_topk is jnp",
+        max_abs_err=0.0, n=THRESHOLD_SIZES[0], ms=at["ms"], plain_ms=at["plain_ms"],
+        bound_ms=at["bound_ms"], bound_by="bytes", library_ms=at["library_ms"],
+        ms_by_size={n: {m: r[m] for m in ("ms", "ms_unrefined", "plain_ms", "library_ms",
+                                          "bound_ms")} for n, r in thr_by_size.items()})
 
     # -- small input: the card's run against the host's on the same orders ---
     small = {}
@@ -2640,6 +2715,10 @@ def main() -> int:
               f"step {r['step']} launched the flash kernel {r['flash_launches']} times, "
               f"want (1 + 2K) x layers = {want_flash}")
     check(any(r["dense_step"] for r in rows), "the run holds a dense sync")
+    want_thr = threshold_calls(model_spec(tcfg), exch) * TRAIN_STEPS
+    check(launches["train"]["exchange_threshold"] == want_thr,
+          f"the exchange launched exchange_threshold {launches['train']['exchange_threshold']} "
+          f"times in {TRAIN_STEPS} steps, want groups x filtered leaves x steps = {want_thr}")
     check(sum(losses[-3:]) / 3 < losses[0],
           f"the last three losses {losses[-3:]} average below step 0's {losses[0]}")
     del params, opt_state, exch_state, m, batch
@@ -2912,6 +2991,11 @@ def main() -> int:
          flash_launches_per_step_rule=want_flash, launches=launches["train_audio"],
          seconds=time.perf_counter() - t_phase)
     check("tokens" not in batch and "frame_embeds" in batch, "the audio batch holds frames")
+    want_thr = threshold_calls(model_spec(acfg), aexch) * AUDIO_STEPS
+    check(launches["train_audio"]["exchange_threshold"] == want_thr,
+          f"hubert's exchange launched exchange_threshold "
+          f"{launches['train_audio']['exchange_threshold']} times in {AUDIO_STEPS} steps, "
+          f"want groups x filtered leaves x steps = {want_thr}")
     check(all(math.isfinite(x) for x in losses), "every hubert training loss is finite")
     for r in rows:
         check(r["flash_launches"] == want_flash,

@@ -35,57 +35,24 @@ import math
 import torch
 
 from repro_torch.core import filter as msg_filter
+from repro_torch.kernels import ops
 from repro_torch.tracing import span
-
-_NUM_BUCKETS = 64
-_FLOOR = 2.0**-22
-
 
 # ---------------------------------------------------------------------------
 # Histogram threshold (grouped, O(n) memory).
 # ---------------------------------------------------------------------------
 
 
-def _round(mag: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, k: int):
-    """One histogram round on |x|; returns (t_lo, t_hi) bracketing k."""
-    with span("exchange.histogram"):
-        hi = torch.clamp(hi, min=1e-37)
-        lo = torch.minimum(torch.maximum(lo, hi * 1e-37), hi)
-        ratio = torch.log(lo / hi) / (_NUM_BUCKETS - 1)  # negative
-        # Bucket 0 holds the largest magnitudes.
-        idx = torch.where(mag >= lo, torch.log(torch.clamp(mag, min=1e-37) / hi) / ratio,
-                          torch.full_like(mag, float(_NUM_BUCKETS)))
-        idx = idx.to(torch.int32).clamp(0, _NUM_BUCKETS)
-        with span("sync.bincount", syncs=2):  # on CUDA it reads its input's min and max
-            counts = torch.bincount(idx.flatten().long(), minlength=_NUM_BUCKETS + 1)
-        csum = torch.cumsum(counts[:_NUM_BUCKETS], 0)  # count(mag >= edge_j)
-        reached = csum >= k
-        hit, first = reached.any(), torch.argmax(reached.to(torch.int32))
-        with span("sync.last_bucket"):  # a pageable copy to the device
-            last = torch.tensor(_NUM_BUCKETS - 1, device=mag.device)
-        j = torch.where(hit, first, last)
-
-        def edge(i):
-            return hi * torch.exp(ratio * i.to(torch.float32))
-
-        t_lo = edge(j + 1)  # lower edge of bucket j
-        t_hi = torch.where(j > 0, edge(j), torch.full_like(t_lo, math.inf))
-        return t_lo, t_hi
-
-
 def threshold_for_topk(x: torch.Tensor, k: int, refine: bool = True) -> torch.Tensor:
     """Approximate k-th-largest-|x| threshold via 1-2 histogram rounds.
 
     Guarantee: #{|x| >= t} >= min(k, #{|x| >= max|x|*2^-22}), and the
-    overshoot is bounded by one refined bucket's population.
+    overshoot is bounded by one refined bucket's population. On the card
+    this is ``csrc/exchange_threshold.cu``, with no host sync, bit for bit
+    its plain version (``kernels/exchange_threshold.py``), which the CPU runs.
     """
     with span("exchange.threshold", timed=True):
-        mag = torch.abs(x.to(torch.float32))
-        hi = torch.max(mag)
-        t_lo, t_hi = _round(mag, hi, hi * _FLOOR, k)
-        if refine:
-            t_lo, _ = _round(mag, torch.where(torch.isinf(t_hi), hi, t_hi), t_lo, k)
-        return t_lo
+        return ops.exchange_threshold(x, k, refine)
 
 
 def sparsify_leaf(dw: torch.Tensor, rho: float, refine: bool = True):

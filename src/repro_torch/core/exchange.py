@@ -14,18 +14,20 @@ rho = 1, gamma = 1 the update is exactly the data-parallel mean gradient.
 
 The filter is the :mod:`repro_torch.core.compress` registry entry
 (``ExchangeConfig.compressor``; ``topk_threshold``'s two-round histogram
-threshold by default), so bytes are counted one way on both paths. It is
-plain PyTorch, as it is jnp in the JAX package: the Table-I top-k kernel
-computes another selection.
+threshold by default), so bytes are counted one way on both paths. Its
+threshold (``compress.threshold_for_topk``) is the kernel
+``csrc/exchange_threshold.cu`` on the card; the mask and the split around
+it are plain PyTorch, as they are jnp in the JAX package (the Table-I
+top-k kernel computes another selection).
 
 Leaves are visited in the JAX package's order (dict keys sorted). The step
 is a tensor on the device, and the dense-step and participation decisions
-are made there with ``torch.where``. The host syncs are in the filter:
-``compress.threshold_for_topk``'s histogram rounds call ``torch.bincount``,
-which on CUDA reads its input's minimum and maximum back to the host to
-size its output, and copy one constant to the device from pageable memory:
-three syncs per round, two rounds per leaf and group (a fused exchange
-kernel that removes them is queued in ROADMAP D1).
+are made there with ``torch.where``, so on the card the exchange waits for
+the stream nowhere. The threshold's plain version, which the CPU runs,
+calls ``torch.bincount`` in each histogram round; on CUDA that would read
+its input's minimum and maximum back to the host, and the round's copy of
+one constant from pageable memory would wait too: three syncs per round,
+two rounds per leaf and group.
 :func:`exchange_sequential` writes the new residuals into the state's
 tensors (K float32 copies of the model; a second set would not fit at full
 width) and returns the state holding them; :func:`exchange` returns new

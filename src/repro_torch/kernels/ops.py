@@ -32,12 +32,14 @@ import threading
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.exchange_threshold import (exchange_threshold_cuda,
+                                                    exchange_threshold_plain)
 from repro_torch.kernels.flash_attn import flash_attention_fwd_cuda
 from repro_torch.kernels.sdca_inner import sdca_inner_cuda
 from repro_torch.kernels.topk_filter import topk_filter_cuda, topk_filter_plain
 
 LAUNCHES: dict[str, int] = {"sdca_inner": 0, "topk_filter": 0,
-                             "flash_attention_fwd": 0}
+                             "flash_attention_fwd": 0, "exchange_threshold": 0}
 _LAUNCH_LOCK = threading.Lock()
 _RECORDING = threading.local()  # .counts: this thread's launches into a graph
 _META = threading.local()  # .calls: this thread's flash forwards on meta tensors
@@ -111,6 +113,22 @@ def topk_filter(dw: torch.Tensor, k: int):
         return out
     _count_plain("topk_filter")
     return topk_filter_plain(dw, k)
+
+
+def exchange_threshold(x: torch.Tensor, k: int, refine: bool = True) -> torch.Tensor:
+    """The exchange's histogram threshold of ``x`` for ``k`` kept entries, 0-dim float32.
+
+    ``core/compress.py`` ``threshold_for_topk`` states what it computes. On
+    the card this is one call of ``csrc/exchange_threshold.cu`` (three
+    launches, two without ``refine``, and no host sync); on the CPU it is
+    ``exchange_threshold_plain``, the same rounds in PyTorch.
+    """
+    if x.is_cuda:
+        out = exchange_threshold_cuda(x, k, refine)
+        _count("exchange_threshold")
+        return out
+    _count_plain("exchange_threshold")
+    return exchange_threshold_plain(x, k, refine)
 
 
 def sdca_epoch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,

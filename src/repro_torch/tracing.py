@@ -5,10 +5,10 @@ layer (``session.setup``, ``session.run``, ``engine.round`` and its
 ``engine.server`` and ``engine.launch``, ``engine.eval``,
 ``solver.norms_sq``, ``executor.capture``, ``executor.replay``,
 ``train.step``, ``grads``, ``exchange``, ``exchange.group``,
-``exchange.leaf``, ``exchange.threshold``, ``exchange.histogram``,
-``optimizer.update``) and around each call that makes the host wait for the
-stream (``sync.<site>``: a read to the host, a copy from pageable host
-memory, the syncs inside ``torch.bincount``).
+``exchange.leaf``, ``exchange.threshold``, ``exchange.histogram`` (the
+threshold's plain rounds), ``optimizer.update``) and around each call that
+makes the host wait for the stream (``sync.<site>``: a read to the host, a
+copy from pageable host memory, the syncs inside ``torch.bincount``).
 
 * **Off**, while no profiler records, it reads one flag and returns a shared
   null context: nothing is allocated and no profiler range is opened.

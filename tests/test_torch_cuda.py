@@ -13,7 +13,8 @@ Tolerances: the SDCA kernel sums its dot products in another order than the
 plain version (per CTA of the cluster, then over the cluster), and the H
 dependent steps compound that, so rtol 1e-4 / atol 1e-5 for every loss; the top-k kernel computes the plain version's ladders with the
 same float32 roundings and makes its integer decisions, so its outputs are
-equal exactly; the flash kernel sums its float32 products in tiles where the
+equal exactly, and so does the exchange's threshold kernel, whose threshold
+equals the plain rounds' bit for bit; the flash kernel sums its float32 products in tiles where the
 plain version sums whole rows, so rtol 1e-5 / atol 2e-5 in float32 (the
 CUDA-core kernel), and in bfloat16 (the tensor-core kernel, which rounds P
 to bfloat16 before P V) atol 3e-2; its log-sum-exp rtol 1e-5 with atol
@@ -30,7 +31,7 @@ from repro_torch.api import problems
 from repro_torch.core import acpd, baselines, sdca
 from repro_torch.core.simulate import ClusterModel
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels import flash_attn, sdca_inner, topk_filter
+from repro_torch.kernels import exchange_threshold, flash_attn, sdca_inner, topk_filter
 
 pytestmark = pytest.mark.cuda
 
@@ -385,6 +386,116 @@ def test_topk_kernel_with_few_nonzeros(cuda):
     sent, resid, mask = ops.topk_filter(x, 100)
     assert set(torch.nonzero(sent).flatten().tolist()) == {3, 500, 1999}
     assert torch.equal(mask, topk_filter.topk_filter_plain(x, 100)[2])
+
+
+THRESHOLD_KINDS = ("randn", "ties", "zeros99", "zeros", "huge", "edges")
+
+
+def _threshold_input(kind, n, device):
+    gen = torch.Generator(device=device).manual_seed(n + THRESHOLD_KINDS.index(kind))
+    x = torch.randn(n, generator=gen, device=device)
+    if kind == "ties":
+        x = torch.randint(-3, 4, (n,), generator=gen, device=device).float() * 0.25
+    elif kind == "zeros99":
+        x = torch.where(torch.rand(n, generator=gen, device=device) < 0.01, x, 0.0)
+    elif kind == "zeros":
+        x = torch.zeros(n, device=device)
+    elif kind == "huge":
+        x[n // 3] = 3e37
+    elif kind == "edges":  # every edge of round 1's ladder under max 1, and its neighbours
+        ratio = torch.log(torch.tensor(2.0**-22, device=device)) / 63
+        e = torch.exp(ratio * torch.arange(65, device=device, dtype=torch.float32))
+        e = torch.cat([e, torch.nextafter(e, torch.zeros_like(e)),
+                       torch.nextafter(e, torch.ones_like(e))])
+        x = e[torch.randint(0, e.numel(), (n,), generator=gen, device=device)]
+        x = torch.where(torch.rand(n, generator=gen, device=device) < 0.5, x, -x)
+    return x
+
+
+def _bits(t):
+    return t.view(torch.int32).item()
+
+
+@pytest.mark.parametrize("refine", [True, False])
+@pytest.mark.parametrize("kind", THRESHOLD_KINDS)
+@pytest.mark.parametrize("n", [1024, 5120, 6_553_600, 91_750_400])
+def test_exchange_threshold_kernel_equals_plain_bitwise(cuda, n, kind, refine):
+    """The threshold, and with it the mask and the kept count, equal the plain
+    rounds' on the card bit for bit; a call is one counted launch, repeats
+    bit for bit and never syncs with the host."""
+    x = _threshold_input(kind, n, cuda)
+    mag = x.abs()
+    for k in sorted({1, max(1, int(n / 64)), n}):
+        want = exchange_threshold.exchange_threshold_plain(x, k, refine)
+        before = ops.LAUNCHES["exchange_threshold"]
+        got = ops.exchange_threshold(x, k, refine)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = ops.exchange_threshold(x, k, refine)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert ops.LAUNCHES["exchange_threshold"] == before + 2
+        assert got.shape == () and got.dtype == torch.float32 and got.is_cuda
+        assert _bits(got) == _bits(want), (k, float(got), float(want))
+        assert _bits(again) == _bits(got)
+        assert torch.equal(mag >= got, mag >= want)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 9, 1023, 4099, 300_001])
+def test_exchange_threshold_kernel_unaligned_and_shaped(cuda, n, offset):
+    """A scalar head before the float4 body and a tail after it; a leaf's
+    group slice and a 2-D view; a tensor that needs a copy first."""
+    base = _threshold_input("randn", n + offset, cuda)
+    x = base[offset:]
+    k = max(1, n // 64)
+    want = exchange_threshold.exchange_threshold_plain(x, k)
+    assert _bits(ops.exchange_threshold(x, k)) == _bits(want)
+    if n % 3 == 0:
+        assert _bits(ops.exchange_threshold(x.reshape(3, -1), k)) == _bits(want)
+    assert _bits(ops.exchange_threshold(x.to(torch.bfloat16), k)) == _bits(
+        exchange_threshold.exchange_threshold_plain(x.to(torch.bfloat16), k))
+    grouped = torch.stack([x, 2 * x]).reshape(2, n)
+    assert _bits(ops.exchange_threshold(grouped[1], k)) == _bits(
+        exchange_threshold.exchange_threshold_plain(grouped[1], k))
+    if n > 1:
+        strided = base[: 2 * (n // 2): 2]
+        assert _bits(ops.exchange_threshold(strided, 1)) == _bits(
+            exchange_threshold.exchange_threshold_plain(strided, 1))
+
+
+def test_torch_divides_by_the_scalar_63_as_a_multiply_by_its_reciprocal(cuda):
+    """The kernel's ``kInv63``: torch computes ``x / 63`` for a float32 CUDA
+    tensor as ``x * (1.0f / 63)``, which differs from a true division on
+    some inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = -torch.rand(1 << 20, generator=gen, device=cuda) * 16
+    recip = a * torch.tensor(1.0 / 63.0, dtype=torch.float32, device=cuda)
+    true = a / torch.tensor(63.0, dtype=torch.float32, device=cuda)
+    assert torch.equal(a / 63, recip)
+    assert not torch.equal(recip, true)
+
+
+def test_exchange_threshold_kernel_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="entries"):
+        ops.exchange_threshold(torch.empty(0, device=cuda), 1)
+
+
+def test_sparsify_leaf_on_the_card_equals_the_plain_threshold(cuda, monkeypatch):
+    """The exchange's filter with the kernel and with the plain rounds
+    swapped into ``ops``: the same mask, sent values and kept count."""
+    from repro_torch.core import compress
+
+    dw = torch.stack([_threshold_input("randn", 6_553_600, cuda) * s for s in (1.0, 1e-3)])
+    dw = dw.reshape(2, 5120, 1280)
+    before = ops.LAUNCHES["exchange_threshold"]
+    sent, mask = compress.sparsify_leaf(dw, 1 / 64)
+    assert ops.LAUNCHES["exchange_threshold"] == before + 2
+    monkeypatch.setattr(ops, "exchange_threshold", exchange_threshold.exchange_threshold_plain)
+    sent_p, mask_p = compress.sparsify_leaf(dw, 1 / 64)
+    assert torch.equal(mask, mask_p) and torch.equal(sent, sent_p)
+    assert int(mask.sum()) == int(mask_p.sum())
 
 
 @pytest.mark.parametrize("preset", ["acpd", "cocoa_plus"])
