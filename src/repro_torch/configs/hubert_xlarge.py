@@ -8,6 +8,12 @@ so decode_32k and long_500k are skipped for this arch (DESIGN §5). HuBERT's
 convolutional relative positional embedding is replaced by RoPE (adaptation
 note: positional scheme is orthogonal to the compute/communication profile
 measured here).
+
+This config mirrors the JAX package's stand-in and stays for the parity
+tests. The published model (conv waveform encoder, conv positions, pre-LN
+GELU blocks with biases, the masked-unit loss) is the port's
+``models.config.ConvAudioConfig`` with ``frontend="audio_conv"``, built from
+``perfbench/configs/hubert-xlarge.json``.
 """
 
 from repro_torch.models.config import LayerSpec, ModelConfig

@@ -23,6 +23,14 @@ monitored forward and, under ``remat``, twice per layer for each group
 False runs the windowed layers as its baseline (``models.attention``), the
 same loss and gradients at more work.
 
+On the card, a loss that makes no host sync (HuBERT's,
+``frontend="audio_conv"``; a decoder's attention copies its scale from the
+host) has its loss and gradient, forward, remat's recompute and backward,
+taken as one captured CUDA graph (:class:`GradGraphs`) per batch shape and
+replayed every step: the host then issues a few hundred launches a step
+where it issued tens of thousands, and a deep model's step is bound by the
+card rather than by the host.
+
 The mesh is not ported (ROADMAP A7): sequence sharding, ZeRO-1 and FSDP
 have nothing to shard over on one card, and asking for them raises
 (``launch/mesh.py`` ports only the mesh's shape arithmetic). The JAX
@@ -64,14 +72,70 @@ class TrainSetup:
 
 def value_and_grad(loss_fn, params: PyTree, batch: dict):
     """(loss, gradient tree) of ``loss_fn(params, batch)`` in the parameters'
-    dtypes. ``params`` need not require grad; they are not modified."""
+    dtypes. ``params`` need not require grad; they are not modified. A
+    :class:`GradGraphs` loss replays its graph: the tensors returned are then
+    the graph's, overwritten by its next replay."""
     with span("grads", timed=True):
+        if isinstance(loss_fn, GradGraphs):
+            return loss_fn.value_and_grad(params, batch)
+        return _value_and_grad(loss_fn, params, batch)
+
+
+def _value_and_grad(loss_fn, params: PyTree, batch: dict):
+    leaves, unflatten = tree_flatten(params)
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss = loss_fn(unflatten(live), batch)
+        grads = torch.autograd.grad(loss, live)
+    return loss.detach(), unflatten(list(grads))
+
+
+class GradGraphs:
+    """A loss function whose value and gradient :func:`value_and_grad` takes
+    as CUDA graphs, one per batch signature (names, shapes, dtypes).
+
+    The first call of a signature captures it after PyTorch's recipe: two
+    eager calls on a side stream set up autograd's, cuBLAS's and cuDNN's
+    lazy state and the kernels' builds, then a third is captured on that
+    stream. A call copies the batch into the graph's input buffers and
+    replays it on the current stream. The graph reads the parameters where
+    they lay at its capture, so they must be updated in place (as
+    ``apply_update`` does); a call whose parameters lie elsewhere raises.
+    Called directly it is the plain loss function (the monitored forward)."""
+
+    def __init__(self, loss_fn):
+        self.loss_fn = loss_fn
+        self.graphs: dict = {}
+
+    def __call__(self, params: PyTree, batch: dict) -> torch.Tensor:
+        return self.loss_fn(params, batch)
+
+    def value_and_grad(self, params: PyTree, batch: dict):
         leaves, unflatten = tree_flatten(params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss = loss_fn(unflatten(live), batch)
-            grads = torch.autograd.grad(loss, live)
-        return loss.detach(), unflatten(list(grads))
+        where = [p.data_ptr() for p in leaves]
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(params, batch, where)
+        graph, inputs, loss, grads, at = self.graphs[key]
+        if where != at:
+            raise ValueError("the parameters moved since the gradient's graph was captured")
+        for name, t in batch.items():
+            inputs[name].copy_(t)
+        graph.replay()
+        return loss, unflatten(grads)
+
+    def _capture(self, params: PyTree, batch: dict, where: list):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            inputs = {k: v.clone() for k, v in batch.items()}
+            for _ in range(2):
+                _value_and_grad(self.loss_fn, params, inputs)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            loss, grads = _value_and_grad(self.loss_fn, params, inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        return graph, inputs, loss, tree_flatten(grads)[0], where
 
 
 def build_train_step(setup: TrainSetup, device: str | torch.device | None = None):
@@ -88,6 +152,9 @@ def build_train_step(setup: TrainSetup, device: str | torch.device | None = None
     def loss_fn(params, batch):
         return train_loss(params, batch, cfg, remat=setup.remat,
                           exploit_window=setup.exploit_window)
+
+    if dev.type == "cuda" and cfg.frontend == "audio_conv":
+        loss_fn = GradGraphs(loss_fn)
 
     def grad_fn(params, batch):
         return value_and_grad(loss_fn, params, batch)[1]

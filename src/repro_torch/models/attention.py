@@ -22,6 +22,11 @@ unchanged by it, as in JAX.
 Scaling: ``_project_qkv`` pre-scales q by ``hd ** -0.5`` in the compute
 dtype, as the JAX package does, and ``attention`` hands that q to the kernel
 with ``sm_scale=1.0``, so q is scaled once and rounded as in JAX.
+
+The ``audio_conv`` frontend (HuBERT) adds a bias to each of q, k, v and
+the output projection, scales q after its bias by the Python float, as
+HuBERT's attention does (no copy to the device), and leaves RoPE out: that
+frontend has added its positions to the stream (``models/audio.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +51,11 @@ def attention_spec(cfg: ModelConfig) -> dict:
         "wv": ParamSpec((d, KV * hd), dt, ("embed", "kv_heads")),
         "wo": ParamSpec((H * hd, d), dt, ("heads", "embed")),
     }
+    if cfg.frontend == "audio_conv":
+        spec.update(bq=ParamSpec((H * hd,), dt, ("heads",), init="zeros"),
+                    bk=ParamSpec((KV * hd,), dt, ("kv_heads",), init="zeros"),
+                    bv=ParamSpec((KV * hd,), dt, ("kv_heads",), init="zeros"),
+                    bo=ParamSpec((d,), dt, ("embed",), init="zeros"))
     if cfg.qk_norm:
         spec["q_norm"] = {"scale": ParamSpec((hd,), torch.float32, (None,), init="ones")}
         spec["k_norm"] = {"scale": ParamSpec((hd,), torch.float32, (None,), init="ones")}
@@ -59,19 +69,25 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
     hd = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
     dt = x.dtype
-    q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (x @ params["wk"].to(dt)).reshape(B, S, KV, hd)
-    v = (x @ params["wv"].to(dt)).reshape(B, S, KV, hd)
+    q, k, v = (x @ params["wq"].to(dt)), (x @ params["wk"].to(dt)), (x @ params["wv"].to(dt))
+    if "bq" in params:
+        q, k, v = q + params["bq"].to(dt), k + params["bk"].to(dt), v + params["bv"].to(dt)
+    q, k, v = q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.rmsnorm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.rmsnorm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.frontend != "audio_conv":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    q = q.reshape(B, S, KV, H // KV, hd)
+    if cfg.frontend == "audio_conv":
+        # HuBERT scales by a Python float, one rounding of the product.
+        return q * hd**-0.5, k, v
     # The scale rounded to the compute dtype first, as a weakly typed Python
     # float is in JAX: q * hd^-0.5 rounds as the JAX package's does.
     with span("sync.attn_scale"):  # a pageable copy to the device
         scale = torch.tensor(hd**-0.5, dtype=dt, device=x.device)
-    q = q.reshape(B, S, KV, H // KV, hd) * scale
+    q = q * scale
     return q, k, v
 
 
@@ -108,7 +124,8 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     set. Returns (out (B,S,D), cache or None).
 
     Prefill and training (``cache=None``) go through the flash kernel (the
-    backward's blocks are 512 by 512, the JAX package's defaults), with
+    backward's blocks are 512 by 512, the JAX package's defaults, but a
+    sequence shorter than 768 is one block), with
     ``exploit_window`` passed to it (see the module docstring);
     ``return_kv=True`` also returns the projected (k, v) for the caller to
     assemble caches.
@@ -127,7 +144,10 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     new_cache = None
     if cache is None:
-        spec = FlashSpec(causal=cfg.causal, window=window, block_q=512, block_k=512,
+        # Two blocks of 512 would pad a sequence of 513-767 rows to 1,024: HuBERT's
+        # 562 frames would take 4 tile pairs of 512 x 512 where one of 562 x 562 does.
+        block = S if S < 768 else 512
+        spec = FlashSpec(causal=cfg.causal, window=window, block_q=block, block_k=block,
                          softcap=cfg.attn_logit_softcap, exploit_window=exploit_window)
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), spec)
         if return_kv:
@@ -143,4 +163,6 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         new_cache = (k_cache, v_cache)
 
     out = out.reshape(B, S, H * hd) @ params["wo"].to(x.dtype)
+    if "bo" in params:
+        out = out + params["bo"].to(x.dtype)
     return out, new_cache

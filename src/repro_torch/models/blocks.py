@@ -2,13 +2,17 @@
 
 PyTorch counterpart of ``repro.models.blocks``. A *block* is one layer: a
 pre-norm attention or SSD mixer, plus a pre-norm dense SwiGLU MLP, a MoE
-sublayer, or nothing (``mlp="none"``), per its :class:`LayerSpec`. A
+sublayer, or nothing (``mlp="none"``), per its :class:`LayerSpec`. Under
+the ``audio_conv`` frontend the norms are LayerNorm with a bias and the
+dense MLP is GELU with biases (``models/layers.py``). A
 *stage* is a stack of identical periods whose parameters are stacked over a
 leading ``layers`` axis, as in the JAX package; where JAX scans, the port
 loops over the periods in Python and indexes the stacks. With ``remat``
 (training) each period runs under ``torch.utils.checkpoint``
 (non-reentrant), as JAX's ``jax.checkpoint`` of the scan body: its
-activations are recomputed in the backward pass instead of kept. Every
+activations are recomputed in the backward pass instead of kept. No
+forward draws random numbers, so the checkpoint keeps no RNG state (which
+would also bar a CUDA graph capture of the step, ``launch/steps.py``). Every
 MoE block returns its load-balance term, summed over the stage in layer
 order.
 
@@ -31,7 +35,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
+from repro_torch.models.layers import mlp, mlp_spec, norm, norm_spec
 from repro_torch.models.param import stack_specs, tree_leaves_with_path, tree_map
 from repro_torch.models.ssm import SsmCache
 
@@ -45,16 +49,16 @@ class AttnCache(NamedTuple):
 
 
 def block_spec(cfg: ModelConfig, layer: LayerSpec) -> dict:
-    spec: dict[str, Any] = {"norm1": rmsnorm_spec(cfg.d_model, "embed")}
+    spec: dict[str, Any] = {"norm1": norm_spec(cfg, cfg.d_model, "embed")}
     if layer.kind == "attn":
         spec["attn"] = attn_lib.attention_spec(cfg)
     else:
         spec["ssm"] = ssm_lib.ssm_spec(cfg)
     if layer.mlp == "dense":
-        spec["norm2"] = rmsnorm_spec(cfg.d_model, "embed")
+        spec["norm2"] = norm_spec(cfg, cfg.d_model, "embed")
         spec["mlp"] = mlp_spec(cfg)
     elif layer.mlp == "moe":
-        spec["norm2"] = rmsnorm_spec(cfg.d_model, "embed")
+        spec["norm2"] = norm_spec(cfg, cfg.d_model, "embed")
         spec["moe"] = moe_lib.moe_spec(cfg)
     return spec
 
@@ -69,7 +73,7 @@ def block_apply(params: dict, layer: LayerSpec, x: torch.Tensor, cfg: ModelConfi
     :class:`SsmCache`) for the caller to assemble. ``exploit_window`` goes
     to the attention layer without a cache (``attention.attention``)."""
     aux = None
-    h = rmsnorm(params["norm1"], x, cfg.rmsnorm_eps)
+    h = norm(params["norm1"], x, cfg)
     if layer.kind == "attn":
         if cache is None:
             out, new_cache = attn_lib.attention(params["attn"], h, cfg, positions=positions,
@@ -88,10 +92,9 @@ def block_apply(params: dict, layer: LayerSpec, x: torch.Tensor, cfg: ModelConfi
         out, new_cache = ssm_lib.ssm_decode_step(params["ssm"], h, cache, cfg)
     x = x + out
     if layer.mlp == "dense":
-        x = x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.rmsnorm_eps))
+        x = x + mlp(params["mlp"], norm(params["norm2"], x, cfg))
     elif layer.mlp == "moe":
-        out2, aux = moe_lib.moe(params["moe"], rmsnorm(params["norm2"], x, cfg.rmsnorm_eps),
-                                cfg)
+        out2, aux = moe_lib.moe(params["moe"], norm(params["norm2"], x, cfg), cfg)
         x = x + out2
     return x, new_cache, aux
 
@@ -174,7 +177,7 @@ def stage_apply(params: dict, layout: tuple[LayerSpec, ...], x: torch.Tensor,
         p_params = _period(params, p)
         if remat and torch.is_grad_enabled():
             x, aux = checkpoint(_period_forward, p_params, layout, x, aux, cfg, positions,
-                                exploit_window, use_reentrant=False)
+                                exploit_window, use_reentrant=False, preserve_rng_state=False)
             continue
         for i, layer in enumerate(layout):
             key = f"pos{i}"

@@ -5,6 +5,13 @@ A model is a sequence of *stages*; each stage is a stack of identical
 each stage; the port loops over its periods in Python. The dataclasses and
 their field values are the JAX package's; only ``pdtype``/``cdtype`` give
 ``torch.dtype``s.
+
+:class:`ConvAudioConfig` is the port's own: a waveform encoder as HuBERT
+and wav2vec 2.0 publish it (``frontend="audio_conv"``: conv feature
+encoder, convolutional positions, pre-LN GELU blocks with biases,
+masked-unit head). That frontend alone selects the block's published form
+(``models/layers.py``, ``models/attention.py``), so ``ModelConfig``'s
+fields stay the JAX package's and every other config runs as before.
 """
 
 from __future__ import annotations
@@ -65,7 +72,7 @@ class ModelConfig:
     ssm_chunk: int = 256
 
     # Modality frontend.
-    frontend: Literal["text", "audio_stub", "vision_stub"] = "text"
+    frontend: Literal["text", "audio_stub", "vision_stub", "audio_conv"] = "text"
     num_patch_tokens: int = 1024
 
     # Numerics.
@@ -163,3 +170,38 @@ class ModelConfig:
             param_dtype="float32",
             compute_dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvAudioConfig(ModelConfig):
+    """A waveform encoder (``frontend="audio_conv"``): HuBERT's and wav2vec
+    2.0's conv feature encoder over float32 samples (each conv with a bias,
+    then LayerNorm over its channels and GELU: X-Large's ``conv_bias`` and
+    ``feat_extract_norm="layer"``), a LayerNorm
+    and a projection to ``d_model``, a learned mask embedding, the
+    weight-normed grouped positional conv (``num_conv_pos_embeddings`` taps,
+    ``num_conv_pos_embedding_groups`` groups), the block stack and HuBERT's
+    masked-unit head: ``final_dim`` projection, cosine logits over
+    ``vocab_size`` unit embeddings at temperature ``logit_temp``, plus
+    ``feature_penalty`` times the encoder output's mean square. The
+    defaults are HuBERT X-Large's (``facebook/hubert-xlarge-ll60k``)."""
+
+    causal: bool = False
+    frontend: str = "audio_conv"
+    rmsnorm_eps: float = 1e-5  # the blocks' LayerNorm
+    conv_dim: tuple[int, ...] = (512,) * 7
+    conv_kernel: tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    final_dim: int = 1024
+    logit_temp: float = 0.1
+    feature_penalty: float = 10.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if not len(self.conv_dim) == len(self.conv_kernel) == len(self.conv_stride):
+            raise ValueError("conv_dim, conv_kernel and conv_stride differ in length")
+        if self.d_model % self.num_conv_pos_embedding_groups:
+            raise ValueError(f"d_model {self.d_model} is not a multiple of "
+                             f"{self.num_conv_pos_embedding_groups} positional conv groups")

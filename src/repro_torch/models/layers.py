@@ -3,6 +3,9 @@
 PyTorch counterpart of ``repro.models.layers``, with the same dtype
 handling: norms and RoPE compute in float32 and cast back to the input's
 dtype; the matrix products run in the compute dtype; logits are float32.
+The port adds the block of wav2vec 2.0 and HuBERT, which the frontend
+``"audio_conv"`` selects: LayerNorm with a bias, and the GELU MLP with
+biases.
 """
 
 from __future__ import annotations
@@ -25,6 +28,31 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def layernorm_spec(dim: int, axis: str | None = None) -> dict:
+    return {"scale": ParamSpec((dim,), torch.float32, (axis,), init="ones"),
+            "bias": ParamSpec((dim,), torch.float32, (axis,), init="zeros")}
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm over the last dim with scale and bias, in float32."""
+    y = torch.nn.functional.layer_norm(x.float(), x.shape[-1:], params["scale"].float(),
+                                       params["bias"].float(), eps)
+    return y.to(x.dtype)
+
+
+def norm_spec(cfg: ModelConfig, dim: int, axis: str | None = None) -> dict:
+    """The block norm: LayerNorm for the ``audio_conv`` frontend, else RMSNorm."""
+    if cfg.frontend == "audio_conv":
+        return layernorm_spec(dim, axis)
+    return rmsnorm_spec(dim, axis)
+
+
+def norm(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if "bias" in params:
+        return layernorm(params, x, cfg.rmsnorm_eps)
+    return rmsnorm(params, x, cfg.rmsnorm_eps)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S)."""
     half = x.shape[-1] // 2
@@ -39,6 +67,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def mlp_spec(cfg: ModelConfig) -> dict:
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.pdtype
+    if cfg.frontend == "audio_conv":
+        return {"w1": ParamSpec((d, f), dt, ("embed", "ff")),
+                "b1": ParamSpec((f,), dt, ("ff",), init="zeros"),
+                "w2": ParamSpec((f, d), dt, ("ff", "embed")),
+                "b2": ParamSpec((d,), dt, ("embed",), init="zeros")}
     return {
         "gate": ParamSpec((d, f), dt, ("embed", "ff")),
         "up": ParamSpec((d, f), dt, ("embed", "ff")),
@@ -47,7 +80,12 @@ def mlp_spec(cfg: ModelConfig) -> dict:
 
 
 def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU, or with ``w1`` in ``params`` the GELU MLP with biases (exact
+    GELU, as ``hidden_act="gelu"`` is)."""
     dt = x.dtype
+    if "w1" in params:
+        h = torch.nn.functional.gelu(x @ params["w1"].to(dt) + params["b1"].to(dt))
+        return h @ params["w2"].to(dt) + params["b2"].to(dt)
     g = x @ params["gate"].to(dt)
     u = x @ params["up"].to(dt)
     return (torch.nn.functional.silu(g) * u) @ params["down"].to(dt)

@@ -14,6 +14,13 @@ batch ``frame_embeds`` (B, S, d_model); a learned linear ``projector`` maps
 them into the stream, the patches before the text tokens. The VLM's loss is
 taken on the text positions only; the audio model is encoder-only and has
 no decode step.
+
+The port's published audio path, ``frontend="audio_conv"``
+(:class:`~repro_torch.models.config.ConvAudioConfig`, ``models/audio.py``):
+a batch carries float32 samples ``waveform`` (B, n), a ``mask`` (B, S) of
+the frames to predict and their units ``labels`` (B, S); the conv feature
+encoder, the mask embedding and the positional conv make the stream, and
+``train_loss`` is HuBERT's masked-unit loss. It trains only.
 """
 
 from __future__ import annotations
@@ -23,11 +30,11 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import blocks
+from repro_torch.models import audio, blocks
 from repro_torch.models.blocks import AttnCache
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (chunked_cross_entropy, embed, embedding_spec,
-                                       lm_head_spec, logits, rmsnorm, rmsnorm_spec)
+                                       lm_head_spec, logits, norm, norm_spec)
 from repro_torch.models.param import ParamSpec
 
 
@@ -38,10 +45,15 @@ def model_spec(cfg: ModelConfig) -> dict:
     if cfg.frontend in ("vision_stub", "audio_stub"):
         spec["projector"] = {
             "w": ParamSpec((cfg.d_model, cfg.d_model), cfg.pdtype, ("embed", None))}
+    if cfg.frontend == "audio_conv":
+        spec["frontend"] = audio.frontend_spec(cfg)
     for si, (layout, periods) in enumerate(cfg.stages()):
         spec[f"stage{si}"] = blocks.stage_spec(cfg, layout, periods)
-    spec["final_norm"] = rmsnorm_spec(cfg.d_model, "embed")
-    spec["lm_head"] = lm_head_spec(cfg)
+    spec["final_norm"] = norm_spec(cfg, cfg.d_model, "embed")
+    if cfg.frontend == "audio_conv":
+        spec["head"] = audio.head_spec(cfg)
+    else:
+        spec["lm_head"] = lm_head_spec(cfg)
     return spec
 
 
@@ -77,7 +89,7 @@ def _forward_hidden(params, x, cfg, *, positions, caches=None, cache_len=None,
                                         exploit_window=exploit_window)
         new_caches.append(nc)
         aux_total = aux_total + aux
-    return rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps), new_caches, aux_total
+    return norm(params["final_norm"], x, cfg), new_caches, aux_total
 
 
 def train_loss(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = True,
@@ -88,7 +100,12 @@ def train_loss(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = Tru
     positions only) plus ``aux_weight`` times the MoE load-balance terms
     summed over the layers, as in the JAX package (the sum is 0 without MoE
     layers). ``exploit_window=False`` runs the windowed layers as the JAX
-    package's baseline of that name (``models.attention``): the same loss."""
+    package's baseline of that name (``models.attention``): the same loss.
+    ``frontend="audio_conv"``: HuBERT's masked-unit loss of ``waveform``,
+    ``mask`` and ``labels`` (``models/audio.py``)."""
+    if cfg.frontend == "audio_conv":
+        return _masked_unit_loss(params, batch, cfg, remat=remat,
+                                 exploit_window=exploit_window, aux_weight=aux_weight)
     x = _input_embeds(params, batch, cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device, dtype=torch.int32)[None, :]
@@ -98,6 +115,17 @@ def train_loss(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = Tru
         h = h[:, batch["patch_embeds"].shape[1]:]
     nll = chunked_cross_entropy(params["lm_head"], h, batch["labels"], cfg)
     return nll + aux_weight * aux
+
+
+def _masked_unit_loss(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool,
+                      exploit_window: bool, aux_weight: float) -> torch.Tensor:
+    x, penalty = audio.embed_frames(params["frontend"], batch["waveform"], batch["mask"], cfg)
+    x = audio.pos_conv(params["frontend"], x, cfg)
+    positions = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)[None, :]
+    h, _, aux = _forward_hidden(params, x, cfg, positions=positions, remat=remat,
+                                exploit_window=exploit_window)
+    loss = audio.head_loss(params["head"], h, batch["labels"], batch["mask"], penalty, cfg)
+    return loss + aux_weight * aux
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype,
@@ -158,7 +186,7 @@ def decode_step(params: dict, token: torch.Tensor, caches: list, cache_len: int,
     """One serve step: token (B,) int, ``cache_len`` = prompt + generated count
     including this token. Returns (logits (B, V) float32, caches); the caches
     are updated in place. An encoder-only model raises ``ValueError``."""
-    if cfg.frontend == "audio_stub":
+    if cfg.frontend in ("audio_stub", "audio_conv"):
         raise ValueError("encoder-only model has no decode step")
     x = embed(params["embed"], token[:, None], cfg)
     positions = torch.full((x.shape[0], 1), cache_len - 1, device=x.device,

@@ -89,23 +89,27 @@ def tree_leaves_with_path(tree: PyTree, prefix: str = "") -> Iterator[tuple[str,
 def tree_flatten(tree: PyTree) -> tuple[list, Callable[[list], PyTree]]:
     """The leaves of a nested dict in the JAX package's order (keys sorted at
     every level, as ``jax.tree.leaves`` takes them), and a function that
-    builds the same nesting around a list of new leaves in that order."""
+    builds the same nesting around a list of new leaves in that order.
+
+    The walks are module functions, not closures that call themselves: such
+    a closure is a reference cycle, and would keep the leaves it saw (a
+    step's gradients) alive until the cyclic collector ran."""
     leaves: list = []
+    skeleton = _skeleton(tree, leaves)
+    return leaves, lambda new: _build(skeleton, new)
 
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        leaves.append(t)
-        return len(leaves) - 1
 
-    skeleton = walk(tree)
+def _skeleton(tree: PyTree, leaves: list) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _skeleton(tree[k], leaves) for k in sorted(tree)}
+    leaves.append(tree)
+    return len(leaves) - 1
 
-    def unflatten(new: list) -> PyTree:
-        def build(s):
-            return {k: build(v) for k, v in s.items()} if isinstance(s, dict) else new[s]
-        return build(skeleton)
 
-    return leaves, unflatten
+def _build(skeleton: PyTree, new: list) -> PyTree:
+    if isinstance(skeleton, dict):
+        return {k: _build(v, new) for k, v in skeleton.items()}
+    return new[skeleton]
 
 
 def stack_specs(spec: PyTree, num: int) -> PyTree:

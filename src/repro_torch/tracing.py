@@ -6,7 +6,9 @@ layer (``session.setup``, ``session.run``, ``engine.round`` and its
 ``solver.norms_sq``, ``executor.capture``, ``executor.replay``,
 ``train.step``, ``grads``, ``exchange``, ``exchange.group``,
 ``exchange.leaf``, ``exchange.threshold``, ``exchange.histogram`` (the
-threshold's plain rounds), ``optimizer.update``) and around each call that
+threshold's plain rounds), ``optimizer.update``, and HuBERT's
+``audio.frontend``, ``audio.posconv`` and ``audio.head`` in
+``models/audio.py``) and around each call that
 makes the host wait for the stream (``sync.<site>``: a read to the host, a
 copy from pageable host memory, the syncs inside ``torch.bincount``).
 

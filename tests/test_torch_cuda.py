@@ -1040,3 +1040,61 @@ def test_nan_gamma_batch_adds_no_capture(cuda, protocol):
     assert executor.STATS[f"{stat}_traces"] == traces
     assert executor.finite_certificates(out).tolist() == [False, True]
     assert _same(out[1].result, _solo_scan(problem, m, cells[1], outer))
+
+
+def test_graphed_gradients_match_the_eager_step(cuda, monkeypatch):
+    """``GradGraphs``: a tiny HuBERT encoder takes three exchange steps with
+    each group's loss and gradient replayed from one captured CUDA graph (the
+    step's choice for that frontend on the card), and three eager ones. The replays run the same kernels, so losses and
+    parameters agree to bf16 rounding (rtol 1e-4 on the loss; atol 5e-3 on
+    parameters of order 0.1 after three AdamW steps of 1e-3, where a
+    coordinate picked by one exchange and not the other moves by a step);
+    after capture a step launches only the monitored forward's flash kernels
+    from Python, 1 a layer, where the eager step launches 1 + 2 x 4 a layer."""
+    from repro_torch.core import exchange as tex
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    from repro_torch.models.config import ConvAudioConfig
+    from repro_torch.models.param import tree_flatten, tree_map, tree_materialize
+    from repro_torch.optim import optimizers
+
+    cfg = ConvAudioConfig(arch_id="hubert-tiny", family="audio", num_layers=4, d_model=64,
+                          num_heads=4, num_kv_heads=4, head_dim=16, d_ff=128, vocab_size=32,
+                          conv_dim=(32,) * 7, num_conv_pos_embeddings=16,
+                          num_conv_pos_embedding_groups=4, final_dim=48,
+                          param_dtype="bfloat16", compute_dtype="bfloat16")
+    base = tree_materialize(model.model_spec(cfg), torch.Generator(cuda).manual_seed(0), cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    S, n = 40, 400 + 320 * 39
+    batches = [{"waveform": torch.randn(8, n, generator=g, device=cuda),
+                "mask": torch.rand(8, S, generator=g, device=cuda) < 0.5,
+                "labels": torch.randint(0, 32, (8, S), generator=g, device=cuda)}
+               for _ in range(3)]
+    exch = tex.ExchangeConfig(num_groups=4, group_size=2, rho=1 / 64, min_leaf_size=64)
+    runs = []
+    setup = steps.TrainSetup(cfg=cfg, optimizer=optimizers.OptimizerConfig(warmup_steps=1),
+                             exchange=exch)
+
+    class Eager:  # in GradGraphs' place the step keeps its plain loss function
+        def __new__(cls, loss_fn):
+            return loss_fn
+
+    for graphed in (False, True):
+        if graphed:
+            monkeypatch.undo()
+        else:
+            monkeypatch.setattr(steps, "GradGraphs", Eager)
+        params = tree_map(torch.clone, base)
+        opt, ex = optimizers.init_state(setup.optimizer, params), tex.init_state(exch, params)
+        step = steps.build_train_step(setup, cuda)
+        losses = []
+        for b in batches:
+            before = ops.LAUNCHES["flash_attention_fwd"]
+            params, opt, ex, m = step(params, opt, ex, b)
+            losses.append(float(m["loss"]))
+        runs.append((losses, tree_flatten(params)[0], ops.LAUNCHES["flash_attention_fwd"] - before))
+    (l_e, p_e, n_e), (l_g, p_g, n_g) = runs
+    assert n_e == (1 + 2 * 4) * 4 and n_g == 4
+    np.testing.assert_allclose(l_g, l_e, rtol=1e-4)
+    for a, b in zip(p_g, p_e):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=5e-3)
