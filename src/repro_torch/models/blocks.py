@@ -7,7 +7,12 @@ the ``audio_conv`` frontend the norms are LayerNorm with a bias and the
 dense MLP is GELU with biases (``models/layers.py``). A
 *stage* is a stack of identical periods whose parameters are stacked over a
 leading ``layers`` axis, as in the JAX package; where JAX scans, the port
-loops over the periods in Python and indexes the stacks. With ``remat``
+loops over the periods in Python. It splits the stacks once per stage
+(:func:`split_periods`: one ``unbind`` a stacked leaf, counted in
+``STATS["stack_unbinds"]``), so the backward stacks a leaf's L period
+gradients once, as the scan's does; indexing each period instead would send
+back L zero-filled gradients of the whole stack and sum them, O(L^2) bytes
+for an O(L) result. With ``remat``
 (training) each period runs under ``torch.utils.checkpoint``
 (non-reentrant), as JAX's ``jax.checkpoint`` of the scan body: its
 activations are recomputed in the backward pass instead of kept. No
@@ -38,6 +43,10 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import mlp, mlp_spec, norm, norm_spec
 from repro_torch.models.param import stack_specs, tree_leaves_with_path, tree_map
 from repro_torch.models.ssm import SsmCache
+
+# Stacked parameter leaves unbound into periods (split_periods), one per leaf
+# per stage_apply call; a CUDA graph's replay runs no Python and counts none.
+STATS = {"stack_unbinds": 0}
 
 
 class AttnCache(NamedTuple):
@@ -132,11 +141,25 @@ def stage_spec(cfg: ModelConfig, layout: tuple[LayerSpec, ...], periods: int) ->
     return stack_specs(period, periods)
 
 
-def _period(tree: Any, p: int) -> Any:
-    """Period ``p`` of a tree stacked over periods (views, not copies)."""
-    if isinstance(tree, (AttnCache, SsmCache)):
-        return type(tree)(*(t[p] for t in tree))
-    return tree_map(lambda a: a[p], tree)
+def _period(cache: AttnCache | SsmCache, p: int) -> AttnCache | SsmCache:
+    """Period ``p`` of a layer's caches stacked over periods (views, not
+    copies). Indexed, not unbound: decode writes them in place, which
+    autograd bars on the views of a multi-output op such as ``unbind``."""
+    return type(cache)(*(t[p] for t in cache))
+
+
+def _unbind(a: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    STATS["stack_unbinds"] += 1
+    return a.unbind(0)
+
+
+def split_periods(params: dict) -> list[dict]:
+    """A stage's parameters period by period: each stacked leaf unbound once
+    along its ``layers`` axis (views, not copies), so its gradient comes back
+    through one ``UnbindBackward0`` that stacks the period gradients."""
+    _, leaf = next(tree_leaves_with_path(params))
+    split = tree_map(_unbind, params)
+    return [tree_map(lambda parts: parts[p], split) for p in range(leaf.shape[0])]
 
 
 def _stack(raws: list) -> Any:
@@ -169,12 +192,9 @@ def stage_apply(params: dict, layout: tuple[LayerSpec, ...], x: torch.Tensor,
     ``aux_sum`` adds the MoE blocks' load-balance terms in layer order to a
     float32 0 (the other blocks add 0 in the JAX package).
     """
-    _, leaf = next(tree_leaves_with_path(params))
-    periods = leaf.shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     raw: dict[str, list] = {f"pos{i}": [] for i in range(len(layout))}
-    for p in range(periods):
-        p_params = _period(params, p)
+    for p, p_params in enumerate(split_periods(params)):
         if remat and torch.is_grad_enabled():
             x, aux = checkpoint(_period_forward, p_params, layout, x, aux, cfg, positions,
                                 exploit_window, use_reentrant=False, preserve_rng_state=False)

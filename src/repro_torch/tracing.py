@@ -35,10 +35,10 @@ span stays open across a ``yield``. The store holds the last traced window
 only: the first span opened while a profiler records, after spans were last
 seen with it off, starts a new one. It keeps at most ``CAP`` records and
 counts what it drops past that. :func:`summary` reads it, with how much
-``ops.LAUNCHES`` and ``executor.STATS`` grew from the window's first span to
-its last root span's end. There is no exporter and no switch: an operator
-runs the program under ``torch.profiler`` and reads its trace, or
-:func:`summary`.
+``ops.LAUNCHES``, ``executor.STATS`` and ``blocks.STATS`` grew from the
+window's first span to its last root span's end. There is no exporter and
+no switch: an operator runs the program under ``torch.profiler`` and reads
+its trace, or :func:`summary`.
 """
 
 from __future__ import annotations
@@ -58,7 +58,8 @@ PREFIX = "repro_torch."
 # module that holds each and its name there. Read from sys.modules, so that
 # a window that never imported the module reports no growth.
 COUNTERS = {"launches": ("repro_torch.kernels.ops", "LAUNCHES"),
-            "executor": ("repro_torch.core.executor", "STATS")}
+            "executor": ("repro_torch.core.executor", "STATS"),
+            "blocks": ("repro_torch.models.blocks", "STATS")}
 
 
 _NULL = contextlib.nullcontext()  # reusable: every span that records nothing
@@ -181,8 +182,9 @@ def summary() -> dict:
     host time of the ``sync.*`` spans inside it, at any depth) and
     ``device_ms`` (between its CUDA events; None off the card and for spans
     not timed), and for ``sync.*`` names ``syncs``, the syncs their calls
-    made, under ``"spans"``; the growth of ``ops.LAUNCHES`` (``"launches"``) and
-    ``executor.STATS`` (``"executor"``) over the window; ``"dropped"``, the
+    made, under ``"spans"``; the growth of ``ops.LAUNCHES`` (``"launches"``),
+    ``executor.STATS`` (``"executor"``) and ``models.blocks.STATS``
+    (``"blocks"``: stacked leaves unbound) over the window; ``"dropped"``, the
     records past ``CAP``. Waits for the card's work where spans recorded
     events."""
     w = _window

@@ -1098,3 +1098,52 @@ def test_graphed_gradients_match_the_eager_step(cuda, monkeypatch):
     np.testing.assert_allclose(l_g, l_e, rtol=1e-4)
     for a, b in zip(p_g, p_e):
         torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=5e-3)
+
+
+def test_unbound_stacks_take_no_more_backward_memory_than_indexed_periods(cuda, monkeypatch):
+    """``models/blocks.py`` ``split_periods``: a narrow 48-period HuBERT-shaped
+    encoder (hd 80, bf16, remat) takes its gradient with every stacked leaf
+    unbound once, and again with each period indexed from the stacks; the
+    first holds a leaf's period gradients until one stack, the second a
+    whole-stack sum from the first period's backward on, so its peak is at
+    or above the first's. The gradients are equal."""
+    from repro_torch.launch import steps
+    from repro_torch.models import blocks, model
+    from repro_torch.models.config import ConvAudioConfig
+    from repro_torch.models.param import tree_leaves_with_path, tree_map, tree_materialize
+
+    cfg = ConvAudioConfig(arch_id="hubert-narrow", family="audio", num_layers=48, d_model=320,
+                          num_heads=4, num_kv_heads=4, head_dim=80, d_ff=1280, vocab_size=32,
+                          conv_dim=(64,) * 7, num_conv_pos_embeddings=16,
+                          num_conv_pos_embedding_groups=4, final_dim=64,
+                          param_dtype="bfloat16", compute_dtype="bfloat16")
+    params = tree_materialize(model.model_spec(cfg), torch.Generator(cuda).manual_seed(0), cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    S = 100
+    batch = {"waveform": torch.randn(2, 400 + 320 * (S - 1), generator=g, device=cuda),
+             "mask": torch.rand(2, S, generator=g, device=cuda) < 0.5,
+             "labels": torch.randint(0, 32, (2, S), generator=g, device=cuda)}
+
+    def loss_fn(p, b):
+        return model.train_loss(p, b, cfg, remat=True)
+
+    def select_periods(stage):
+        _, leaf = next(tree_leaves_with_path(stage))
+        return [tree_map(lambda a: a[p], stage) for p in range(leaf.shape[0])]
+
+    peaks, grads = {}, {}
+    for split in ("unbind", "select", "unbind"):
+        if split == "select":
+            monkeypatch.setattr(blocks, "split_periods", select_periods)
+        else:
+            monkeypatch.undo()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        _, tree = steps.value_and_grad(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        peaks[split] = torch.cuda.max_memory_allocated(cuda)
+        grads[split] = {path: t.cpu() for path, t in tree_leaves_with_path(tree)}
+        del tree
+    assert peaks["unbind"] <= peaks["select"], peaks
+    for path, want in grads["select"].items():
+        assert torch.equal(grads["unbind"][path], want), path
