@@ -1,6 +1,7 @@
 """The port stands alone: nothing in ``src/repro_torch``, ``chip_smoke.py`` or
 the port's profile scripts imports JAX or the JAX package ``repro``,
-statically or at run time."""
+statically or at run time; and a test worker keeps the intra-op thread budget
+that the root ``conftest.py`` gives it."""
 
 import ast
 import os
@@ -49,3 +50,14 @@ def test_importing_the_whole_port_loads_no_jax_module():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_xdist_worker_keeps_its_thread_budget():
+    """Under ``-n N`` each worker has at most its share of the cores; a test
+    file that raises the count and does not restore it fails here."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if workers is None:
+        pytest.skip("not an xdist worker: the thread count is PyTorch's default")
+    import torch
+
+    assert torch.get_num_threads() <= max(1, (os.cpu_count() or 1) // int(workers))
