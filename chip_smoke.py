@@ -98,7 +98,11 @@ threshold kernel to its plain rounds bit for bit at the exchange cell's
 leaf sizes, checks that a call runs its three named kernels without a host
 sync, and times it beside its bound, the plain rounds and ``torch.histc``;
 both training phases check that it ran once a group and filtered leaf of
-every step. Launch counts are zeroed just before each path and
+every step. ``kernel_exchange_apply`` holds the exchange's split
+(``csrc/exchange_apply.cu``) to its plain passes bit for bit at the exchange
+cells' largest leaves and times each pass beside its byte bound and its plain
+version; both training phases check two launches a group and leaf of every
+step. Launch counts are zeroed just before each path and
 read just after it. Every phase prints one
 JSON line; any failure raises and the script exits non-zero. The last line
 is the device summary ``{"ok": true, "device": {...}}``.
@@ -219,6 +223,11 @@ SOFTCAP, CAP_SCALE, FULL_RANGE_S = 50.0, 4.0, 32_768
 # torch.histc pass into the kernel's 65 bins over +-10 sigma of the input.
 THRESHOLD_SIZES, THRESHOLD_RHO, THRESHOLD_SIGMA = (91_750_400, 183_500_800), 1 / 64, 1e-3
 
+# The exchange split's leaf sizes: phi3-medium-14b's largest (the 2-layer
+# stack of one 5,120 x 17,920 MLP matrix) and HuBERT X-Large's stacked FFN
+# matrix (48 x 1,280 x 5,120), bf16 gradients at the exchange's rho 1/64.
+APPLY_SIZES = (183_500_800, 314_572_800)
+
 # The SDCA kernel's losses by their template argument.
 SDCA_LOSSES = ("ridge", "smoothed_hinge", "logistic")
 HINGE_ROUNDS = 3
@@ -284,6 +293,102 @@ def threshold_calls(spec, exch) -> int:
         return 0
     leaves = tree_flatten(spec)[0]
     return exch.num_groups * sum(math.prod(s.shape) >= exch.min_leaf_size for s in leaves)
+
+
+def apply_calls(spec, exch) -> int:
+    """Split launches of one exchange step: two a group and leaf where the
+    filter is topk_threshold (the fused split), none otherwise."""
+    from repro_torch.core import compress
+    from repro_torch.models.param import tree_flatten
+
+    if not isinstance(compress.for_exchange(exch), compress.TopKThreshold):
+        return 0
+    return 2 * exch.num_groups * len(tree_flatten(spec)[0])
+
+
+def kernel_exchange_apply(dev, gen) -> dict:
+    """``csrc/exchange_apply.cu`` at the exchange cells' largest leaves: both
+    passes bit for bit their plain versions (a participating sparse group),
+    no host sync, then each pass timed alone beside its byte bound and its
+    plain version. Pass 2 is timed in three modes, each launch right after a
+    pass 1 (so the kept set is a fresh one), by CUDA events around it alone:
+    a participating sparse group, a resting one (p_g = 0) and the dense
+    step. Returns the kernels line's row."""
+    from repro_torch.kernels import exchange_apply as apply_mod, ops
+
+    nb = dict(dense_bytes=(4, 0), sparse_bytes=(8, 0))
+    one, zero = torch.tensor(1.0, device=dev), torch.tensor(0.0, device=dev)
+    no, yes = torch.tensor(False, device=dev), torch.tensor(True, device=dev)
+    by_size = {}
+    for n_leaf in APPLY_SIZES:
+        k_leaf = max(1, int(n_leaf * THRESHOLD_RHO))
+        grad = (torch.randn(n_leaf, generator=gen, device=dev) * THRESHOLD_SIGMA).to(
+            torch.bfloat16)
+        res = torch.randn(n_leaf, generator=gen, device=dev).mul_(THRESHOLD_SIGMA)
+        acc = torch.zeros(n_leaf, device=dev)
+        counts = [torch.zeros((), device=dev) for _ in range(2)]
+        r_p, a_p, c_p = res.clone(), acc.clone(), [c.clone() for c in counts]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ops.exchange_apply_add(res, grad)
+            thresh = ops.exchange_threshold(res, k_leaf)
+            ops.exchange_apply_split(res, acc, one, no, thresh, *counts, **nb)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        apply_mod.exchange_apply_add_plain(r_p, grad)
+        kept = int((r_p.abs() >= thresh).sum())
+        apply_mod.exchange_apply_split_plain(r_p, a_p, one, no, thresh, *c_p, **nb)
+        equal = all(bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+                    for a, b in ((res, r_p), (acc, a_p), *zip(counts, c_p)))
+        emit("kernel_exchange_apply_check", n=n_leaf, k=k_leaf, kept=kept,
+             sent_count=float(counts[0]), byte_count=float(counts[1]), bits_equal_plain=equal)
+        check(equal, f"exchange_apply equals its plain passes bit for bit (n {n_leaf})")
+        check(float(counts[0]) == kept, "the split counted the kept coordinates")
+        del r_p, a_p
+        torch.cuda.empty_cache()
+
+        def split_ms(pg, dense, warmup=3, reps=20):
+            marks = []
+            for r in range(warmup + reps):
+                ops.exchange_apply_add(res, grad)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                ops.exchange_apply_split(res, acc, pg, dense, thresh, *counts, **nb)
+                e1.record()
+                if r >= warmup:
+                    marks.append((e0, e1))
+            torch.cuda.synchronize()
+            return sum(a.elapsed_time(b) for a, b in marks) / len(marks)
+
+        def plain_pair():
+            apply_mod.exchange_apply_add_plain(res, grad)
+            apply_mod.exchange_apply_split_plain(res, acc, one, no, thresh, *counts, **nb)
+
+        sparse_bytes = (4 + 12 * kept / n_leaf) * n_leaf  # d read; acc and res where kept
+        row = dict(
+            k=k_leaf, kept=kept,
+            add_ms=time_ms(lambda: ops.exchange_apply_add(res, grad), warmup=3, reps=20),
+            add_bound_ms=10 * n_leaf / PEAK_BYTES * 1e3,
+            split_sparse_ms=split_ms(one, no), split_sparse_bound_ms=sparse_bytes / PEAK_BYTES * 1e3,
+            split_resting_ms=split_ms(zero, no), split_resting_bound_ms=4 * n_leaf / PEAK_BYTES * 1e3,
+            split_dense_ms=split_ms(one, yes), split_dense_bound_ms=16 * n_leaf / PEAK_BYTES * 1e3,
+            add_plain_ms=time_ms(lambda: apply_mod.exchange_apply_add_plain(res, grad),
+                                 warmup=1, reps=5),
+            pair_plain_ms=time_ms(plain_pair, warmup=1, reps=5))
+        row["split_plain_ms"] = row["pair_plain_ms"] - row["add_plain_ms"]
+        by_size[n_leaf] = row
+        emit("kernel_exchange_apply", n=n_leaf, grad_dtype="bfloat16", **row)
+        del grad, res, acc
+        torch.cuda.empty_cache()
+    at = by_size[APPLY_SIZES[0]]
+    return dict(
+        name="exchange_apply", route="cuda", source="src/repro_torch/csrc/exchange_apply.cu",
+        replaces="none: src/repro/core/exchange.py exchange_sequential's split is jnp",
+        max_abs_err=0.0, n=APPLY_SIZES[0], ms=at["add_ms"] + at["split_sparse_ms"],
+        plain_ms=at["pair_plain_ms"], bound_ms=at["add_bound_ms"] + at["split_sparse_bound_ms"],
+        bound_by="bytes", library_ms=None, ms_by_size=by_size)
 
 
 def nvidia_smi() -> str:
@@ -963,7 +1068,7 @@ def main() -> int:
 
     # -- build: one nvcc per source, all started together --------------------
     t0 = time.perf_counter()
-    sources = ("sdca_inner", "topk_filter", "flash_attn", "exchange_threshold")
+    sources = ("sdca_inner", "topk_filter", "flash_attn", "exchange_threshold", "exchange_apply")
     _build.build(*sources)
     ptxas = {}
     for name in sources:
@@ -1360,6 +1465,9 @@ def main() -> int:
         bound_ms=at["bound_ms"], bound_by="bytes", library_ms=at["library_ms"],
         ms_by_size={n: {m: r[m] for m in ("ms", "ms_unrefined", "plain_ms", "library_ms",
                                           "bound_ms")} for n, r in thr_by_size.items()})
+
+    # -- kernel 5: the exchange's split at the exchange cells' largest leaves --
+    kernels["exchange_apply"] = kernel_exchange_apply(dev, gen)
 
     # -- small input: the card's run against the host's on the same orders ---
     small = {}
@@ -2719,6 +2827,10 @@ def main() -> int:
     check(launches["train"]["exchange_threshold"] == want_thr,
           f"the exchange launched exchange_threshold {launches['train']['exchange_threshold']} "
           f"times in {TRAIN_STEPS} steps, want groups x filtered leaves x steps = {want_thr}")
+    want_apply = apply_calls(model_spec(tcfg), exch) * TRAIN_STEPS
+    check(launches["train"]["exchange_apply"] == want_apply,
+          f"the exchange launched exchange_apply {launches['train']['exchange_apply']} times "
+          f"in {TRAIN_STEPS} steps, want 2 x groups x leaves x steps = {want_apply}")
     check(sum(losses[-3:]) / 3 < losses[0],
           f"the last three losses {losses[-3:]} average below step 0's {losses[0]}")
     del params, opt_state, exch_state, m, batch
@@ -2996,6 +3108,11 @@ def main() -> int:
           f"hubert's exchange launched exchange_threshold "
           f"{launches['train_audio']['exchange_threshold']} times in {AUDIO_STEPS} steps, "
           f"want groups x filtered leaves x steps = {want_thr}")
+    want_apply = apply_calls(model_spec(acfg), aexch) * AUDIO_STEPS
+    check(launches["train_audio"]["exchange_apply"] == want_apply,
+          f"hubert's exchange launched exchange_apply "
+          f"{launches['train_audio']['exchange_apply']} times in {AUDIO_STEPS} steps, "
+          f"want 2 x groups x leaves x steps = {want_apply}")
     check(all(math.isfinite(x) for x in losses), "every hubert training loss is finite")
     for r in rows:
         check(r["flash_launches"] == want_flash,

@@ -55,11 +55,16 @@ def threshold_for_topk(x: torch.Tensor, k: int, refine: bool = True) -> torch.Te
         return ops.exchange_threshold(x, k, refine)
 
 
+def kept_target(rho: float, n: int) -> int:
+    """The grouped filters' k: entries to keep of a leaf's n, at least one."""
+    return max(1, int(rho * n))
+
+
 def sparsify_leaf(dw: torch.Tensor, rho: float, refine: bool = True):
     """dw (G, *shape) -> (sent, kept_mask) with ~rho fraction kept per group."""
     G = dw.shape[0]
     n = math.prod(dw.shape[1:])
-    k = max(1, int(rho * n))
+    k = kept_target(rho, n)
     thresh = torch.stack([threshold_for_topk(dw[g], k, refine) for g in range(G)])
     tb = thresh.reshape((G,) + (1,) * (dw.ndim - 1))
     mask = torch.abs(dw) >= tb
@@ -173,7 +178,7 @@ class TopKExact(Compressor):
     def compress_grouped(self, dw):
         G = dw.shape[0]
         n = math.prod(dw.shape[1:])
-        k = max(1, int(self.rho * n))
+        k = kept_target(self.rho, n)
         res = msg_filter.topk_mask_exact(dw.reshape(G, n), k)
         return res.sent.reshape(dw.shape), res.mask.reshape(dw.shape)
 

@@ -16,9 +16,15 @@ The filter is the :mod:`repro_torch.core.compress` registry entry
 (``ExchangeConfig.compressor``; ``topk_threshold``'s two-round histogram
 threshold by default), so bytes are counted one way on both paths. Its
 threshold (``compress.threshold_for_topk``) is the kernel
-``csrc/exchange_threshold.cu`` on the card; the mask and the split around
-it are plain PyTorch, as they are jnp in the JAX package (the Table-I
-top-k kernel computes another selection).
+``csrc/exchange_threshold.cu`` on the card. Where the filter is
+``topk_threshold``, :func:`exchange_sequential` runs the split around it as
+two passes a leaf and group (``ops.exchange_apply_add``, the residual add in
+place, and ``ops.exchange_apply_split``, the mask, the accumulator, the new
+residual and the group's accounting): on the card the two launches of
+``csrc/exchange_apply.cu``, on the CPU their plain versions, which are the
+PyTorch sequence the other filters still run (``topk_exact``, ``topk_q8``,
+dense), and which the JAX package runs in jnp (the Table-I top-k kernel
+computes another selection).
 
 Leaves are visited in the JAX package's order (dict keys sorted). The step
 is a tensor on the device, and the dense-step and participation decisions
@@ -43,6 +49,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core import compress as compress_lib
+from repro_torch.kernels import ops
 from repro_torch.models.param import tree_flatten, tree_map
 from repro_torch.tracing import span
 
@@ -114,6 +121,9 @@ def exchange_sequential(cfg: ExchangeConfig, grad_fn: Callable, params: PyTree,
     """
     G = cfg.num_groups
     comp = compress_lib.for_exchange(cfg)
+    fused = isinstance(comp, compress_lib.TopKThreshold)
+    payload = dict(dense_bytes=(_DENSE.entry_bytes, _DENSE.message_overhead),
+                   sparse_bytes=(comp.entry_bytes, comp.message_overhead))
     dense_step, p, denom = _round_masks(cfg, step)
     res_leaves, unflatten = tree_flatten(state.residual)
     dev = step.device
@@ -138,6 +148,17 @@ def exchange_sequential(cfg: ExchangeConfig, grad_fn: Callable, params: PyTree,
             byte_count = torch.zeros((), dtype=torch.float32, device=dev)
             for i, res in enumerate(res_leaves):
                 with span("exchange.leaf"):
+                    if fused:  # res[g] holds dw, then the new residual
+                        dw = res[g]
+                        ops.exchange_apply_add(dw, grads[i].contiguous())
+                        grads[i] = None
+                        thresh = None  # a leaf under min_leaf_size is sent densely
+                        if dw.numel() >= cfg.min_leaf_size:
+                            thresh = compress_lib.threshold_for_topk(
+                                dw, compress_lib.kept_target(comp.rho, dw.numel()), comp.refine)
+                        ops.exchange_apply_split(dw, acc[i], pg, dense_step, thresh,
+                                                 sent_count, byte_count, **payload)
+                        continue
                     dw = res[g] + grads[i].to(torch.float32)
                     grads[i] = None  # free this group's gradient leaf as it is used
                     sent, mask, always_dense = leaf_filter(dw)
@@ -155,7 +176,9 @@ def exchange_sequential(cfg: ExchangeConfig, grad_fn: Callable, params: PyTree,
             sent_total = sent_total + sent_count
             bytes_total = bytes_total + byte_count
 
-    update = unflatten([cfg.gamma * a / denom for a in acc])
+    # In place: the accumulators become the update, so the step holds no
+    # second float32 copy of the model.
+    update = unflatten([a.mul_(cfg.gamma).div_(denom) for a in acc])
     total = float(sum(r.numel() for r in res_leaves))
     metrics = {
         "exchange/sent_fraction": sent_total / max(total, 1.0),

@@ -32,6 +32,10 @@ import threading
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.exchange_apply import (exchange_apply_add_cuda,
+                                                exchange_apply_add_plain,
+                                                exchange_apply_split_cuda,
+                                                exchange_apply_split_plain)
 from repro_torch.kernels.exchange_threshold import (exchange_threshold_cuda,
                                                     exchange_threshold_plain)
 from repro_torch.kernels.flash_attn import flash_attention_fwd_cuda
@@ -39,7 +43,8 @@ from repro_torch.kernels.sdca_inner import sdca_inner_cuda
 from repro_torch.kernels.topk_filter import topk_filter_cuda, topk_filter_plain
 
 LAUNCHES: dict[str, int] = {"sdca_inner": 0, "topk_filter": 0,
-                             "flash_attention_fwd": 0, "exchange_threshold": 0}
+                             "flash_attention_fwd": 0, "exchange_threshold": 0,
+                             "exchange_apply": 0}
 _LAUNCH_LOCK = threading.Lock()
 _RECORDING = threading.local()  # .counts: this thread's launches into a graph
 _META = threading.local()  # .calls: this thread's flash forwards on meta tensors
@@ -129,6 +134,43 @@ def exchange_threshold(x: torch.Tensor, k: int, refine: bool = True) -> torch.Te
         return out
     _count_plain("exchange_threshold")
     return exchange_threshold_plain(x, k, refine)
+
+
+def exchange_apply_add(res: torch.Tensor, grad: torch.Tensor) -> None:
+    """The exchange's residual add in place: ``res += grad`` in float32.
+
+    ``kernels/exchange_apply.py`` states the split it begins. On the card
+    this is one launch of ``csrc/exchange_apply.cu`` (``res`` and ``grad``
+    contiguous, ``grad`` float32, bfloat16 or float16), counted under
+    ``exchange_apply``; on the CPU it is ``exchange_apply_add_plain``.
+    """
+    if res.is_cuda:
+        exchange_apply_add_cuda(res, grad)
+        _count("exchange_apply")
+        return
+    _count_plain("exchange_apply")
+    exchange_apply_add_plain(res, grad)
+
+
+def exchange_apply_split(res, acc, pg, dense_step, thresh, sent_count, byte_count, *,
+                         dense_bytes: tuple[int, int], sparse_bytes: tuple[int, int]) -> None:
+    """The exchange's split of ``dw`` (held in ``res``) at ``thresh``, in place.
+
+    Updates ``acc``, ``res`` and the group's 0-dim ``sent_count`` and
+    ``byte_count`` (``kernels/exchange_apply.py`` states how); ``thresh``
+    None sends every coordinate. ``dense_bytes`` and ``sparse_bytes`` are
+    (bytes an entry, bytes a message) of the two formats. On the card this is
+    one launch of ``csrc/exchange_apply.cu`` that reads the 0-dim tensors
+    there, with no host sync, counted under ``exchange_apply``; on the CPU it
+    is ``exchange_apply_split_plain``.
+    """
+    kw = dict(dense_bytes=dense_bytes, sparse_bytes=sparse_bytes)
+    if res.is_cuda:
+        exchange_apply_split_cuda(res, acc, pg, dense_step, thresh, sent_count, byte_count, **kw)
+        _count("exchange_apply")
+        return
+    _count_plain("exchange_apply")
+    exchange_apply_split_plain(res, acc, pg, dense_step, thresh, sent_count, byte_count, **kw)
 
 
 def sdca_epoch(w_eff, alpha, X, y, norms_sq, lam: float, n_global: int,

@@ -23,6 +23,8 @@ softcap. The full-range launch (``exploit_window=False``) equals the
 windowed launch bit for bit.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -496,6 +498,154 @@ def test_sparsify_leaf_on_the_card_equals_the_plain_threshold(cuda, monkeypatch)
     sent_p, mask_p = compress.sparsify_leaf(dw, 1 / 64)
     assert torch.equal(mask, mask_p) and torch.equal(sent, sent_p)
     assert int(mask.sum()) == int(mask_p.sum())
+
+
+# The exchange's split (csrc/exchange_apply.cu): (residual shape (G, *leaf),
+# group, offset of grad and acc in their buffers) -- an odd length whose
+# slice at g = 1 starts 4 bytes past 16-byte alignment, with grad and acc
+# offset alike (a scalar head, the float4 body, a scalar tail) and not (every
+# coordinate scalar), a leaf sent densely, a stacked (48, ...) leaf's slice.
+APPLY_LEAVES = {"unaligned": ((3, 300_001), 1, 1), "misaligned": ((3, 300_001), 1, 0),
+                "small": ((2, 600), 1, 0), "stacked": ((3, 48, 64, 80), 2, 0)}
+APPLY_MODES = {"sparse_p0": (0.0, False), "sparse_p1": (1.0, False), "dense_p1": (1.0, True)}
+APPLY_BYTES = dict(dense_bytes=(4, 0), sparse_bytes=(8, 0))
+
+
+def _apply_plant(flat, device):
+    """+inf, -inf and NaN at the head, inside and at the tail of a flat view."""
+    n = flat.numel()
+    at = torch.tensor([0, 2, n // 3, n // 2 + 1, n - 2, n - 1], device=device)
+    flat[at] = torch.tensor([math.inf, math.nan, -math.inf, math.nan, math.inf, -math.inf],
+                            device=device)
+
+
+def _apply_case(leaf, grad_dtype, nonfinite, device):
+    shape, g, off = APPLY_LEAVES[leaf]
+    gen = torch.Generator(device=device).manual_seed(sum(shape) + g)
+    res = torch.randn(shape, generator=gen, device=device) * 0.1
+    n = math.prod(shape[1:])
+    grad = torch.randn(n + off, generator=gen, device=device).to(grad_dtype)[off:]
+    acc = torch.randn(n + off, generator=gen, device=device)[off:]
+    grad, acc = grad.view(shape[1:]), acc.view(shape[1:])
+    if nonfinite:
+        _apply_plant(res[g].view(-1), device)
+    return res, g, grad, acc
+
+
+@pytest.mark.parametrize("nonfinite", [False, True], ids=["finite", "nonfinite"])
+@pytest.mark.parametrize("mode", list(APPLY_MODES))
+@pytest.mark.parametrize("leaf", list(APPLY_LEAVES))
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+def test_exchange_apply_kernels_equal_plain_bitwise(cuda, grad_dtype, leaf, mode, nonfinite):
+    """Both passes equal their plain versions on the card bit for bit (int32
+    views, so NaNs too), the accounting included; two counted launches, no
+    host sync."""
+    from repro_torch.kernels import exchange_apply as apply_mod
+
+    res, g, grad, acc = _apply_case(leaf, grad_dtype, nonfinite, cuda)
+    pg_v, dense_v = APPLY_MODES[mode]
+    pg = torch.tensor(pg_v, device=cuda)
+    dense = torch.tensor(dense_v, device=cuda)
+    r_k, r_p = res.clone(), res.clone()
+    before = ops.LAUNCHES["exchange_apply"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.exchange_apply_add(r_k[g], grad)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    apply_mod.exchange_apply_add_plain(r_p[g], grad)
+    assert torch.equal(r_k.view(torch.int32), r_p.view(torch.int32))
+    thresh = None
+    if leaf != "small":  # one threshold for both sides, from the kernel
+        thresh = ops.exchange_threshold(r_k[g], max(1, r_k[g].numel() // 64))
+    counts_k = [torch.tensor(3.0, device=cuda), torch.tensor(40.0, device=cuda)]
+    counts_p = [c.clone() for c in counts_k]
+    a_k, a_p = acc, acc.clone()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.exchange_apply_split(r_k[g], a_k, pg, dense, thresh, *counts_k, **APPLY_BYTES)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    apply_mod.exchange_apply_split_plain(r_p[g], a_p, pg, dense, thresh, *counts_p,
+                                         **APPLY_BYTES)
+    assert ops.LAUNCHES["exchange_apply"] == before + 2
+    for got, want in ((r_k, r_p), (a_k, a_p), *zip(counts_k, counts_p)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if mode != "sparse_p0":  # the split changed the residual
+        assert not torch.equal(r_k[g].view(torch.int32), res[g].view(torch.int32))
+
+
+def test_exchange_sequential_on_the_card_equals_the_plain_split(cuda, monkeypatch):
+    """11 steps through two dense syncs, the kernels against the plain passes
+    swapped into ``ops``: updates, residuals, sent fraction and bytes equal;
+    two launches a leaf and group."""
+    from repro_torch.core import exchange as exch_lib
+    from repro_torch.kernels import exchange_apply as apply_mod
+    from repro_torch.models.param import tree_flatten
+
+    shapes = {"a": (40, 64), "b": (4099,), "c": (16,), "stacked": (48, 32, 80),
+              "w": (512, 1280)}
+    cfg = exch_lib.ExchangeConfig(num_groups=4, group_size=2, sync_period=5, rho=1 / 64)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    steps = [{k: torch.randn((4, *s), generator=gen, device=cuda).to(
+        torch.float32 if k == "c" else torch.bfloat16) for k, s in shapes.items()}
+        for _ in range(11)]
+    params = {k: torch.zeros(s, device=cuda) for k, s in shapes.items()}
+
+    def run():
+        state = exch_lib.init_state(cfg, params)
+        out = []
+        for t, grads in enumerate(steps):
+            update, state, m = exch_lib.exchange_sequential(
+                cfg, lambda _, b, gr=grads: {k: v[b["i"]] for k, v in gr.items()}, params,
+                {"i": torch.arange(4, device=cuda)}, state, torch.tensor(t, device=cuda))
+            out.append((tree_flatten(update)[0],
+                        [r.clone() for r in tree_flatten(state.residual)[0]],
+                        m["exchange/sent_fraction"], m["exchange/bytes_step"]))
+        return out
+
+    before = ops.LAUNCHES["exchange_apply"]
+    kernel = run()
+    assert ops.LAUNCHES["exchange_apply"] - before == 2 * len(shapes) * 4 * len(steps)
+    monkeypatch.setattr(ops, "exchange_apply_add", apply_mod.exchange_apply_add_plain)
+    monkeypatch.setattr(ops, "exchange_apply_split", apply_mod.exchange_apply_split_plain)
+    plain = run()
+    for (u_k, r_k, f_k, b_k), (u_p, r_p, f_p, b_p) in zip(kernel, plain):
+        assert all(torch.equal(a, b) for a, b in zip(u_k, u_p))
+        assert all(torch.equal(a, b) for a, b in zip(r_k, r_p))
+        assert torch.equal(f_k, f_p) and torch.equal(b_k, b_p)
+    assert [float(f) for _, _, f, _ in kernel][4] == 1.0  # the dense sync sends everything
+
+
+def test_exchange_apply_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    res, acc = torch.zeros(2, 1024, device=cuda), torch.zeros(1024, device=cuda)
+    one, no = torch.tensor(1.0, device=cuda), torch.tensor(False, device=cuda)
+    counts = (torch.zeros((), device=cuda), torch.zeros((), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.exchange_apply_add(res[:, 0], torch.zeros(2, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.exchange_apply_add(res[0], torch.zeros(2048, device=cuda)[::2])
+    with pytest.raises(ValueError, match="grad must be"):
+        ops.exchange_apply_add(res[0], torch.zeros(1024, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="res must be float32"):
+        ops.exchange_apply_add(res[0].to(torch.bfloat16), torch.zeros(1024, device=cuda))
+    with pytest.raises(ValueError, match="is on cpu"):
+        ops.exchange_apply_add(res[0], torch.zeros(1024))
+    with pytest.raises(ValueError, match="entries"):
+        ops.exchange_apply_add(res[0], torch.zeros(1000, device=cuda))
+    with pytest.raises(ValueError, match="is on cpu"):
+        ops.exchange_apply_split(res[0], acc, torch.tensor(1.0), no, None, *counts,
+                                 **APPLY_BYTES)
+    with pytest.raises(ValueError, match="dense_step must be"):
+        ops.exchange_apply_split(res[0], acc, one, one, None, *counts, **APPLY_BYTES)
+    with pytest.raises(ValueError, match="acc must be float32"):
+        ops.exchange_apply_split(res[0], acc.double(), one, no, None, *counts, **APPLY_BYTES)
+    with pytest.raises(ValueError, match="overlaps"):
+        ops.exchange_apply_split(res[0], res[0], one, no, None, *counts, **APPLY_BYTES)
+    with pytest.raises(ValueError, match="thresh must be"):
+        ops.exchange_apply_split(res[0], acc, one, no, one.reshape(1), *counts, **APPLY_BYTES)
 
 
 @pytest.mark.parametrize("preset", ["acpd", "cocoa_plus"])
