@@ -23,9 +23,10 @@ monitored forward and, under ``remat``, twice per layer for each group
 False runs the windowed layers as its baseline (``models.attention``), the
 same loss and gradients at more work.
 
-On the card, a loss that makes no host sync (HuBERT's,
-``frontend="audio_conv"``; a decoder's attention copies its scale from the
-host) has its loss and gradient, forward, remat's recompute and backward,
+On the card, a loss that makes no host sync (a config whose attention does
+not copy its scale from the host, ``cfg.copies_attn_scale`` false: HuBERT's
+and the held-experts decoder's) has its loss and gradient, forward, remat's
+recompute and backward,
 taken as one captured CUDA graph (:class:`GradGraphs`) per batch shape and
 replayed every step: the host then issues a few hundred launches a step
 where it issued tens of thousands, and a deep model's step is bound by the
@@ -153,7 +154,7 @@ def build_train_step(setup: TrainSetup, device: str | torch.device | None = None
         return train_loss(params, batch, cfg, remat=setup.remat,
                           exploit_window=setup.exploit_window)
 
-    if dev.type == "cuda" and cfg.frontend == "audio_conv":
+    if dev.type == "cuda" and not cfg.copies_attn_scale:
         loss_fn = GradGraphs(loss_fn)
 
     def grad_fn(params, batch):

@@ -21,7 +21,11 @@ unchanged by it, as in JAX.
 
 Scaling: ``_project_qkv`` pre-scales q by ``hd ** -0.5`` in the compute
 dtype, as the JAX package does, and ``attention`` hands that q to the kernel
-with ``sm_scale=1.0``, so q is scaled once and rounded as in JAX.
+with ``sm_scale=1.0``, so q is scaled once and rounded as in JAX. The scale
+is a Python float holding ``hd ** -0.5`` rounded to the compute dtype; where
+``cfg.copies_attn_scale`` (the JAX package's decoders, ROADMAP G9) it is
+first copied to the device as a 0-dim tensor of that dtype, the same product
+bit for bit at one host sync a layer (``sync.attn_scale``).
 
 The ``audio_conv`` frontend (HuBERT) adds a bias to each of q, k, v and
 the output projection, scales q after its bias by the Python float, as
@@ -85,10 +89,11 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
         return q * hd**-0.5, k, v
     # The scale rounded to the compute dtype first, as a weakly typed Python
     # float is in JAX: q * hd^-0.5 rounds as the JAX package's does.
-    with span("sync.attn_scale"):  # a pageable copy to the device
-        scale = torch.tensor(hd**-0.5, dtype=dt, device=x.device)
-    q = q * scale
-    return q, k, v
+    scale = float(torch.tensor(hd**-0.5, dtype=dt))
+    if cfg.copies_attn_scale:
+        with span("sync.attn_scale"):  # a pageable copy to the device
+            scale = torch.tensor(scale, dtype=dt, device=x.device)
+    return q * scale, k, v
 
 
 def attend_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

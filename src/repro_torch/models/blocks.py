@@ -39,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.config import HeldExpertsConfig, LayerSpec, ModelConfig
 from repro_torch.models.layers import mlp, mlp_spec, norm, norm_spec
 from repro_torch.models.param import stack_specs, tree_leaves_with_path, tree_map
 from repro_torch.models.ssm import SsmCache
@@ -77,10 +77,12 @@ def block_apply(params: dict, layer: LayerSpec, x: torch.Tensor, cfg: ModelConfi
                 cache_len: int | None = None, exploit_window: bool = True,
                 prefill: bool = False):
     """Returns (x, new_cache, aux) with ``aux`` the float32 MoE load-balance
-    term, or None for a layer without MoE. ``prefill=True`` returns the raw
-    cache of the whole sequence (attention: its (k, v); SSD: its
-    :class:`SsmCache`) for the caller to assemble. ``exploit_window`` goes
-    to the attention layer without a cache (``attention.attention``)."""
+    term (a :class:`HeldExpertsConfig`'s: its (2, experts_total)
+    statistics, ``moe.moe_held``), or None for a layer without MoE.
+    ``prefill=True`` returns the raw cache of the whole sequence (attention:
+    its (k, v); SSD: its :class:`SsmCache`) for the caller to assemble.
+    ``exploit_window`` goes to the attention layer without a cache
+    (``attention.attention``)."""
     aux = None
     h = norm(params["norm1"], x, cfg)
     if layer.kind == "attn":
@@ -103,7 +105,8 @@ def block_apply(params: dict, layer: LayerSpec, x: torch.Tensor, cfg: ModelConfi
     if layer.mlp == "dense":
         x = x + mlp(params["mlp"], norm(params["norm2"], x, cfg))
     elif layer.mlp == "moe":
-        out2, aux = moe_lib.moe(params["moe"], norm(params["norm2"], x, cfg), cfg)
+        layer_fn = moe_lib.moe_held if isinstance(cfg, HeldExpertsConfig) else moe_lib.moe
+        out2, aux = layer_fn(params["moe"], norm(params["norm2"], x, cfg), cfg)
         x = x + out2
     return x, new_cache, aux
 
@@ -189,8 +192,8 @@ def stage_apply(params: dict, layout: tuple[LayerSpec, ...], x: torch.Tensor,
     Prefill returns each layer's raw cache stacked over periods; decode
     returns ``caches`` itself, written in place; otherwise None. ``remat``
     (no caches, not prefill) recomputes each period in the backward pass.
-    ``aux_sum`` adds the MoE blocks' load-balance terms in layer order to a
-    float32 0 (the other blocks add 0 in the JAX package).
+    ``aux_sum`` adds the MoE blocks' load-balance terms (or statistics) in
+    layer order to a float32 0 (the other blocks add 0 in the JAX package).
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     raw: dict[str, list] = {f"pos{i}": [] for i in range(len(layout))}

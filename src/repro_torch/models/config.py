@@ -12,6 +12,13 @@ encoder, convolutional positions, pre-LN GELU blocks with biases,
 masked-unit head). That frontend alone selects the block's published form
 (``models/layers.py``, ``models/attention.py``), so ``ModelConfig``'s
 fields stay the JAX package's and every other config runs as before.
+
+:class:`HeldExpertsConfig` is the port's other own class: a MoE decoder of
+which this card holds one expert-parallel share of the experts, routed over
+all of them without a capacity (``models/moe.py``'s held-experts path), with
+the published load-balance term (``models/model.py`` ``train_loss``). The
+class alone selects that path; the JAX package's MoE configs keep its
+capacity path.
 """
 
 from __future__ import annotations
@@ -106,6 +113,15 @@ class ModelConfig:
     @property
     def cdtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
+
+    @property
+    def copies_attn_scale(self) -> bool:
+        """Whether attention copies q's rounded scale to the device in every
+        layer (``sync.attn_scale``, a host sync; ROADMAP G9). The JAX
+        package's decoders still do; the port's own classes scale by a Python
+        float, so their loss makes no host sync and ``launch/steps.py``
+        graphs its gradient on the card."""
+        return self.frontend != "audio_conv"
 
     def stages(self) -> list[tuple[tuple[LayerSpec, ...], int]]:
         """[(period_layout, num_periods), ...] covering exactly num_layers."""
@@ -205,3 +221,61 @@ class ConvAudioConfig(ModelConfig):
         if self.d_model % self.num_conv_pos_embedding_groups:
             raise ValueError(f"d_model {self.d_model} is not a multiple of "
                              f"{self.num_conv_pos_embedding_groups} positional conv groups")
+
+
+@dataclasses.dataclass(frozen=True)
+class HeldExpertsConfig(ModelConfig):
+    """A MoE decoder of which this card holds ``num_experts`` consecutive
+    experts, ids ``first_expert`` on, of the ``experts_total`` that the
+    router spans: one share of an expert-parallel layer. Routing is dropless
+    (no capacity): every (token, choice) pair whose expert is held is
+    computed, and a pair of an absent expert adds nothing, which is the
+    partial result that the card gives in expert parallelism. The combine
+    weights are the token's top-``experts_per_token`` softmax probabilities
+    over all ``experts_total`` experts, renormalised over the chosen
+    (``norm_topk_probs``). ``load_balance="all_layers_topk"`` is the
+    load-balance term of transformers' ``load_balancing_loss_func``, over
+    all layers' routers at once and every top-k choice, at
+    ``load_balance_coef``; it is computed from the whole router, so every
+    share computes it alike. The defaults are Qwen3-30B-A3B's
+    (``Qwen/Qwen3-30B-A3B``), every expert held."""
+
+    arch_id: str = "qwen3-moe-30b-a3b"
+    family: Family = "moe"
+    num_layers: int = 48
+    d_model: int = 2048
+    num_heads: int = 32
+    num_kv_heads: int = 4
+    d_ff: int = 768
+    vocab_size: int = 151936
+    head_dim: int | None = 128
+    qk_norm: bool = True
+    rope_theta: float = 1_000_000.0
+    layout: tuple[LayerSpec, ...] = (LayerSpec(kind="attn", mlp="moe"),)
+    num_experts: int = 128  # held here
+    experts_per_token: int = 8
+    d_ff_expert: int = 768
+    norm_topk_probs: bool = True
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    rmsnorm_eps: float = 1e-6
+    source: str = "hf:Qwen/Qwen3-30B-A3B"
+    experts_total: int = 128  # the router's width
+    first_expert: int = 0
+    load_balance: Literal["all_layers_topk"] = "all_layers_topk"
+    load_balance_coef: float = 0.001
+
+    def __post_init__(self):
+        super().__post_init__()
+        first, last = self.first_expert, self.first_expert + self.num_experts - 1
+        if not 0 <= first <= last < self.experts_total:
+            raise ValueError(f"experts {first}..{last} are not a share of the router's "
+                             f"{self.experts_total}")
+        if not 1 <= self.experts_per_token <= self.experts_total:
+            raise ValueError(f"top-{self.experts_per_token} of {self.experts_total} experts")
+        if self.load_balance != "all_layers_topk":
+            raise ValueError(f"unknown load_balance {self.load_balance!r}")
+
+    @property
+    def copies_attn_scale(self) -> bool:
+        return False

@@ -30,9 +30,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import audio, blocks
+from repro_torch.models import audio, blocks, moe
 from repro_torch.models.blocks import AttnCache
-from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.config import HeldExpertsConfig, LayerSpec, ModelConfig
 from repro_torch.models.layers import (chunked_cross_entropy, embed, embedding_spec,
                                        lm_head_spec, logits, norm, norm_spec)
 from repro_torch.models.param import ParamSpec
@@ -99,8 +99,10 @@ def train_loss(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = Tru
     ``frame_embeds``): the mean next-token NLL (for the VLM over the text
     positions only) plus ``aux_weight`` times the MoE load-balance terms
     summed over the layers, as in the JAX package (the sum is 0 without MoE
-    layers). ``exploit_window=False`` runs the windowed layers as the JAX
-    package's baseline of that name (``models.attention``): the same loss.
+    layers); a :class:`HeldExpertsConfig` adds its published load-balance
+    term at its own coefficient instead (``moe.load_balance``).
+    ``exploit_window=False`` runs the windowed layers as the JAX package's
+    baseline of that name (``models.attention``): the same loss.
     ``frontend="audio_conv"``: HuBERT's masked-unit loss of ``waveform``,
     ``mask`` and ``labels`` (``models/audio.py``)."""
     if cfg.frontend == "audio_conv":
@@ -114,6 +116,8 @@ def train_loss(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = Tru
     if cfg.frontend == "vision_stub":  # the loss after the patch prefix
         h = h[:, batch["patch_embeds"].shape[1]:]
     nll = chunked_cross_entropy(params["lm_head"], h, batch["labels"], cfg)
+    if isinstance(cfg, HeldExpertsConfig):
+        return nll + cfg.load_balance_coef * moe.load_balance(aux, cfg)
     return nll + aux_weight * aux
 
 

@@ -6,11 +6,13 @@ layer (``session.setup``, ``session.run``, ``engine.round`` and its
 ``solver.norms_sq``, ``executor.capture``, ``executor.replay``,
 ``train.step``, ``grads``, ``exchange``, ``exchange.group``,
 ``exchange.leaf``, ``exchange.threshold``, ``exchange.histogram`` (the
-threshold's plain rounds), ``optimizer.update``, and HuBERT's
+threshold's plain rounds), ``optimizer.update``, HuBERT's
 ``audio.frontend``, ``audio.posconv`` and ``audio.head`` in
-``models/audio.py``) and around each call that
-makes the host wait for the stream (``sync.<site>``: a read to the host, a
-copy from pageable host memory, the syncs inside ``torch.bincount``).
+``models/audio.py``, and the held-experts layer's ``moe.route``,
+``moe.dispatch``, ``moe.experts`` and ``moe.combine`` in ``models/moe.py``)
+and around each call that makes the host wait for the stream
+(``sync.<site>``: a read to the host, a copy from pageable host memory, the
+syncs inside ``torch.bincount``).
 
 * **Off**, while no profiler records, it reads one flag and returns a shared
   null context: nothing is allocated and no profiler range is opened.
@@ -59,17 +61,21 @@ PREFIX = "repro_torch."
 # a window that never imported the module reports no growth.
 COUNTERS = {"launches": ("repro_torch.kernels.ops", "LAUNCHES"),
             "executor": ("repro_torch.core.executor", "STATS"),
-            "blocks": ("repro_torch.models.blocks", "STATS")}
+            "blocks": ("repro_torch.models.blocks", "STATS"),
+            "moe": ("repro_torch.models.moe", "STATS")}
 
 
 _NULL = contextlib.nullcontext()  # reusable: every span that records nothing
 
 
 def _counters() -> dict:
+    """Each counter's values; a count kept on the device is copied there (a
+    launch, no sync), and only :func:`summary` reads it."""
     out = {}
     for key, (module, attr) in COUNTERS.items():
         mod = sys.modules.get(module)
-        out[key] = dict(getattr(mod, attr, {}))
+        out[key] = {c: v.clone() if isinstance(v, torch.Tensor) else v
+                    for c, v in getattr(mod, attr, {}).items()}
     return out
 
 
@@ -173,7 +179,11 @@ class _Span:
 def _growth(first: dict, last: dict | None) -> dict:
     if last is None:
         return {k: {} for k in first}
-    return {k: {c: v - first[k].get(c, 0) for c, v in last[k].items()} for k in last}
+    return {k: {c: _whole(v - first[k].get(c, 0)) for c, v in last[k].items()} for k in last}
+
+
+def _whole(v):
+    return int(v) if isinstance(v, torch.Tensor) else v
 
 
 def summary() -> dict:
@@ -184,7 +194,9 @@ def summary() -> dict:
     not timed), and for ``sync.*`` names ``syncs``, the syncs their calls
     made, under ``"spans"``; the growth of ``ops.LAUNCHES`` (``"launches"``),
     ``executor.STATS`` (``"executor"``) and ``models.blocks.STATS``
-    (``"blocks"``: stacked leaves unbound) over the window; ``"dropped"``, the
+    (``"blocks"``: stacked leaves unbound) and ``models.moe.STATS``
+    (``"moe"``: the held-experts layer's calls, held rows and the sum of each
+    call's largest held expert's rows) over the window; ``"dropped"``, the
     records past ``CAP``. Waits for the card's work where spans recorded
     events."""
     w = _window

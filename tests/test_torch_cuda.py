@@ -20,7 +20,10 @@ CUDA-core kernel), and in bfloat16 (the tensor-core kernel, which rounds P
 to bfloat16 before P V) atol 3e-2; its log-sum-exp rtol 1e-5 with atol
 2e-5 in float32 and 1e-4 in bfloat16, with and without a window or a
 softcap. The full-range launch (``exploit_window=False``) equals the
-windowed launch bit for bit.
+windowed launch bit for bit. The held-experts MoE layer's grouped GEMMs
+and cuBLAS's per-expert products both round each product to bfloat16 and
+sum in float32 in other tiles: within 2 % of each tensor's largest
+magnitude.
 """
 
 import math
@@ -1297,3 +1300,120 @@ def test_unbound_stacks_take_no_more_backward_memory_than_indexed_periods(cuda, 
     assert peaks["unbind"] <= peaks["select"], peaks
     for path, want in grads["select"].items():
         assert torch.equal(grads["unbind"][path], want), path
+
+
+# -- the held-experts MoE layer (Qwen3-30B-A3B's share: 32 of 128, top-8) -----------
+
+def _held_layer(cuda, tokens=8192, seed=0):
+    from repro_torch.models import moe
+    from repro_torch.models.config import HeldExpertsConfig
+    from repro_torch.models.param import tree_materialize
+
+    cfg = HeldExpertsConfig(num_layers=1, num_experts=32, first_expert=32)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    params = tree_materialize(moe.moe_spec(cfg), g, cuda)
+    params = {k: v * (2048**-0.5 / v.float().std()) if k == "router" else v
+              for k, v in params.items()}
+    x = torch.randn(1, tokens, 2048, generator=g, device=cuda).to(torch.bfloat16)
+    return cfg, params, x
+
+
+def test_held_experts_layer_makes_no_host_sync(cuda):
+    """Forward and backward at the cell's widths under sync debug "error"."""
+    from repro_torch.models import moe
+
+    cfg, params, x = _held_layer(cuda)
+    live = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    xl = x.detach().requires_grad_(True)
+    moe.moe_held(live, xl, cfg)  # the kernels' first launches outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, stats = moe.moe_held(live, xl, cfg)
+        loss = out.float().square().mean() + stats[1].sum()
+        grads = torch.autograd.grad(loss, [xl, *live.values()])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def test_held_experts_q_scale_equals_the_decoders_copy(cuda):
+    """The held config's scale, a Python float rounded to bfloat16 on the
+    host, scales q on the card bit for bit as the 0-dim bfloat16 copy does."""
+    q = torch.randn(2, 4096, 4, 8, 128, device=cuda).to(torch.bfloat16)
+    scale = 128**-0.5
+    want = q * torch.tensor(scale, dtype=torch.bfloat16, device=cuda)
+    assert torch.equal(q * float(torch.tensor(scale, dtype=torch.bfloat16)), want)
+
+
+def test_held_experts_grouped_products_match_a_per_expert_loop(cuda):
+    """The grouped GEMMs against cuBLAS products expert by expert (sizes read
+    to the host), forward and the weights' and input's gradients, at the
+    cell's widths. Both round each product to bfloat16 and sum in float32 in
+    other orders and tiles: within 2 % of each tensor's largest magnitude."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+
+    cfg, params, x = _held_layer(cuda, seed=1)
+    xf = x[0]
+    K, E = cfg.experts_per_token, cfg.num_experts
+    top_e = torch.topk(moe.router_logits(params, xf), K, dim=-1).indices
+    local = top_e - cfg.first_expert
+    key = torch.where((local >= 0) & (local < E), local, E).reshape(-1)
+    counts = torch.zeros(E + 1, dtype=torch.int64, device=cuda).scatter_add_(
+        0, key, torch.ones_like(key))
+    leaves = [xf, params["gate"], params["up"], params["down"]]
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    order, ends, valid, rows = moe.sort_pairs(live[0], key, counts, K)
+    got = moe.unsort(moe.grouped_swiglu({"gate": live[1], "up": live[2], "down": live[3]},
+                                        rows, ends, valid), order)
+    ref_live = [t.detach().requires_grad_(True) for t in leaves]
+    want = torch.zeros_like(got)
+    for e in range(E):
+        pairs = torch.nonzero(key == e)[:, 0]
+        h = ref_live[0][pairs // K]
+        y = (F.silu(h @ ref_live[1][e]) * (h @ ref_live[2][e])) @ ref_live[3][e]
+        want = want.index_copy(0, pairs, y)
+    assert int(counts[:E].sum()) > 10_000  # the cell's load: ~2 of 8 choices held
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2 * float(want.abs().max())
+    seed = torch.randn_like(got.float())
+    g_got = torch.autograd.grad((got.float() * seed).sum(), live)
+    g_want = torch.autograd.grad((want.float() * seed).sum(), ref_live)
+    for a, b in zip(g_got, g_want):
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * float(b.abs().max())
+
+
+def test_one_train_step_of_the_cut_qwen3_moe(cuda):
+    """``build_train_step`` on the benchmark's cut (8 layers, 32 of 128
+    experts, the vocabulary's quarter) with the ACPD exchange, at a batch of
+    4 x 1,024: finite losses, and after the second step (the warm-up's first
+    rate above 0) every leaf moved."""
+    import json
+    import pathlib
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from perfbench.drivers.moe_steps import train_setup
+    from perfbench.drivers.train_steps import flat
+    from perfbench.inputs import moe_weights
+    from perfbench.inputs.tokens import TokenStream
+    from repro_torch.core import exchange as exch_lib
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import optimizers
+
+    config = json.loads((root / "perfbench/configs/qwen3-moe-30b-a3b.json").read_text())
+    traffic = json.loads((root / "perfbench/traffic/qwen3-moe-acpd-exchange.json").read_text())
+    setup = train_setup(config, traffic)
+    step = build_train_step(setup, cuda)
+    params = moe_weights.make(config, 5, cuda)
+    before = {p: t.clone() for p, t in flat(params).items()}
+    opt = optimizers.init_state(setup.optimizer, params)
+    exch = exch_lib.init_state(setup.exchange, params)
+    stream = TokenStream(moe_weights.held(config)[2], 4, 1024, 1.1, 6, cuda)
+    for _ in range(2):
+        params, opt, exch, metrics = step(params, opt, exch, stream.next_batch())
+        assert math.isfinite(float(metrics["loss"]))
+    still = [p for p, t in flat(params).items() if torch.equal(t, before[p])]
+    assert not still, still
